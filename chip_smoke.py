@@ -1,28 +1,45 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the checks below
+    python3 chip_smoke.py --split    # also each path's stage split and profile
 
 Phases (any failure raises and the run exits non-zero; there is no CPU
 fallback):
 
 1. device — the card's name, count, and `nvidia-smi` name and power limit;
 2. build — nvcc builds the kernels from complex_yolov4_tpu_torch/csrc/
-   (sm_90a) and its -Xptxas -v register / shared-memory lines are printed;
-3. kernel vs plain — the stem kernel at (8, 608, 608, 3 -> 32) and the
-   3x3 kernel at the five complex_yolov4 main-path shapes (batch 8), each
-   against its plain PyTorch version on the same inputs: at most 1 bf16 ulp
-   apart (values below 2^-10 of the tensor's largest, where the f32 sum
-   cancels, are held to the ulp of that floor), timed with CUDA events;
+   (sm_90a, one nvcc per source, in parallel) and its -Xptxas -v register /
+   shared-memory lines are printed;
+3. kernel vs plain, each on the same inputs as its plain PyTorch version,
+   timed with CUDA events (plain, kernel, kernel, plain):
+   - the stem kernel at (8, 608, 608, 3 -> 32) and the 3x3 kernel at the
+     five complex_yolov4 main-path shapes (batch 8): at most 1 bf16 ulp
+     apart (values below 2^-10 of the tensor's largest, where the f32 sum
+     cancels, are held to the ulp of that floor);
+   - the fused-stage kernel at (8, 304, 304, 64) segment 2-10 and (8, 152,
+     152, 128) segment 12-23, the segments of complex_yolov4_tiny and
+     complex_yolov3, and one 76-px batch-2 case (ragged tiles): max |diff|
+     <= 1e-2 * max |plain| (both round to bf16 after every op);
+   - the int8 kernel at each distinct (k, stride, C_in, C_out, H) of the
+     68 quantized convs of complex_yolov4 at 608, batch 8: int32 sums
+     equal, bf16 outputs within 1 ulp, requantized int8 within 1;
 4. slice — complex_yolov4 at 608, full width, bf16, random weights from
    seed 0, serves 4 requests of 8 synthetic scenes through the port's
    `make_inference_fn(from_cells=True)` (host COO aggregation, device
-   raster, network, decode, rotated NMS at k=64, conf 0.5, nms 0.5); the
-   stem kernel must launch once and the 3x3 kernel five times per request;
-   the decoded heads of the kernel path are compared with the all-plain
-   path on the card.
+   raster, network, decode, rotated NMS at k=64, conf 0.5, nms 0.5), on
+   two paths, each with the launch counts set to 0 just before it:
+   - path 1, bf16: the stem kernel must launch once and the 3x3 kernel
+     five times per request;
+   - path 2, int8 PTQ (`default_skip`, calibrated on 2 synthetic frames)
+     with both fused CSP stages: stem 1, 3x3 2, fused stage 2 and int8
+     conv 68 launches per request;
+   on each path the decoded heads of the kernel path are compared with the
+   all-plain path on the card (path 2 at batch 2: the plain int8 convs run
+   in float64).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record.
+the per-kernel JSON record, and the line before that nvidia-smi's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -47,9 +64,31 @@ CONV3X3_LAYERS = (("L1", 608, 32, 64, 2), ("L6", 304, 32, 64, 1),
 DECODED_REL_TOL = 2e-2
 PROB_ABS_TOL = 1e-2
 MODEL = "complex_yolov4"
-# kernel launches per request of the main path: layer 0 -> stem,
-# layers 1, 6, 11, 16, 19 -> conv3x3
-LAUNCHES_PER_REQUEST = {"stem_conv3x3": 1, "conv3x3_fused": 5}
+# kernel launches per request. Path 1: layer 0 -> stem, layers 1, 6, 11,
+# 16, 19 -> conv3x3. Path 2: layer 0 -> stem, layers 1, 11 -> conv3x3,
+# layers 2-10 and 12-23 -> two fused-stage launches, 68 convs -> int8.
+LAUNCHES_PATH1 = {"stem_conv3x3": 1, "conv3x3_fused": 5, "fused_stage": 0, "int8_conv": 0}
+LAUNCHES_PATH2 = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 68}
+# fused stage vs plain: both round to bf16 after every op, so a 1-ulp flip
+# from another f32 summation order can run through up to 12 ops. The error
+# is absolute, on the scale of the intermediates, so it is held to the
+# output's max and not to the local value (near-zero outputs cancel). On an
+# H100 over seeds 0-5 the main-path segments read 0.0045-0.0091 of max
+# |plain|: at most 2 bf16 steps of values in [0.5, 1).
+FUSED_REL_TOL = 1e-2
+# (model, segment span, H=W, batch): the main-path segments first
+FUSED_CASES = (("complex_yolov4", (2, 10), 304, 8), ("complex_yolov4", (12, 23), 152, 8),
+               ("complex_yolov4_tiny", (2, 8), 152, 8), ("complex_yolov3", (2, 4), 304, 8),
+               ("complex_yolov3", (6, 11), 152, 8), ("complex_yolov4", (12, 23), 76, 2))
+KERNEL_NAMES = ("stem_conv3x3", "conv3x3_fused", "fused_stage", "int8_conv")
+SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
+           "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
+           "fused_stage": "complex_yolov4_tpu_torch/csrc/fused_stage.cu",
+           "int8_conv": "complex_yolov4_tpu_torch/csrc/int8_conv.cu"}
+REPLACES = {"stem_conv3x3": "complex_yolov4_tpu/ops/stem_conv.py:112",
+            "conv3x3_fused": "complex_yolov4_tpu/ops/pallas_conv.py:92",
+            "fused_stage": "complex_yolov4_tpu/ops/fused_stage.py:495",
+            "int8_conv": "complex_yolov4_tpu/models/network.py:456"}
 
 
 def bf16_ulp_error(got: torch.Tensor, ref: torch.Tensor, floor_frac: float = 2.0 ** -10):
@@ -170,6 +209,121 @@ def phase_kernels(dev):
     return records
 
 
+def phase_fused(dev):
+    """Fused-stage kernel vs its plain version; ms per request (batch 8) is
+    the sum over the two main-path segments."""
+    from complex_yolov4_tpu_torch.models import weights, zoo
+    from complex_yolov4_tpu_torch.ops import fused_stage as fs
+
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    failed = []
+    for n, (name, span, hw, batch) in enumerate(FUSED_CASES):
+        spec = zoo.get_model_spec(name)
+        params, state = weights.init_params_np(spec, SEED)
+        st = {k: v.to(dev) for k, v in weights.from_jax_params(spec, params, state).items()}
+        seg = next(s for s in fs.plan_segments(spec, 608) if (s.start, s.end) == span)
+        sw = fs.segment_weights(seg, st)
+        x = torch.from_numpy(np.random.default_rng(SEED + n).normal(
+            0.0, 1.0, (batch, hw, hw, seg.cin)).astype(np.float32)).to(dev, torch.bfloat16)
+        got = fs.apply_segment(seg, x, sw)
+        torch.cuda.synchronize()
+        ref = fs.fused_stage_plain(seg, x, sw)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        ok = (got.shape == ref.shape and bool(torch.isfinite(got.float()).all())
+              and err <= FUSED_REL_TOL * scale)
+        timing = ""
+        if n < 2:  # the main-path segments at batch 8
+            k_ms, p_ms = timed_pair(lambda: fs.apply_segment(seg, x, sw),
+                                    lambda: fs.fused_stage_plain(seg, x, sw), 5)
+            rec["ms"] += k_ms
+            rec["plain_ms"] += p_ms
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            timing = f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+        lay = sw.layout
+        print(f"[kernels] fused_stage {name} {span[0]}-{span[1]} x{tuple(x.shape)} -> "
+              f"{seg.cout}: window {lay.win_h}x{lay.win_w} halo {lay.halo} "
+              f"smem {lay.smem_bytes} B; max_abs_err={err:.6g} "
+              f"(tol {FUSED_REL_TOL} * {scale:.4g}){timing} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{name} {span}")
+        del x, got, ref
+    if failed:
+        raise AssertionError(f"fused stage vs plain beyond tolerance: {failed}")
+    return rec
+
+
+def int8_shapes():
+    """{(k, stride, C_in, C_out, H_in): count} over complex_yolov4's
+    quantized convs at 608 (`default_skip`)."""
+    from complex_yolov4_tpu_torch.models import quantize as qz
+    from complex_yolov4_tpu_torch.models import zoo
+    from complex_yolov4_tpu_torch.models.spec import ConvSpec
+
+    spec = zoo.get_model_spec(MODEL)
+    chans = (spec.in_channels,) + spec.out_channels()
+    strides = spec.out_strides()
+    skip = qz.default_skip(spec)
+    shapes = {}
+    for i, layer in enumerate(spec.layers):
+        if isinstance(layer, ConvSpec) and i not in skip:
+            key = (layer.size, layer.stride, chans[i], layer.filters, 608 // strides[i - 1])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def phase_int8(dev):
+    """int8 kernel vs its plain version at every distinct quantized shape,
+    batch 8, in the int32, bf16 and int8 output modes; ms per request is
+    the bf16-mode time summed over the 68 layers."""
+    from complex_yolov4_tpu_torch.ops import int8_conv as i8
+
+    shapes = int8_shapes()
+    assert sum(shapes.values()) == 68, shapes
+    rng = np.random.default_rng(SEED)
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    failed = []
+    for (k, stride, c_in, c_out, hw), count in sorted(shapes.items()):
+        x = torch.from_numpy(rng.integers(-127, 128, (BATCH, hw, hw, c_in)).astype(np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-127, 128, (c_out, k * k * c_in)).astype(np.int8)).to(dev)
+        # scales of a real layer: |h| of order 1 for |y| ~ sqrt(K) * 127^2 / 3
+        s_w = rng.uniform(0.5, 1.5, c_out) / (127.0 * np.sqrt(k * k * c_in))
+        scale = torch.from_numpy(s_w.astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(0.0, 0.1, c_out).astype(np.float32)).to(dev)
+        kw = {"ksize": k, "stride": stride, "s_x": float(np.float32(2.0 / 127.0)),
+              "activation": "mish"}
+        inv_next = float(np.float32(1.0) / np.float32(3.0 / 127.0))
+        g32 = i8.int8_conv(x, w, scale, b, out="int32", **kw)
+        gbf = i8.int8_conv(x, w, scale, b, **kw)
+        gi8 = i8.int8_conv(x, w, scale, b, out="int8", inv_s_next=inv_next, **kw)
+        torch.cuda.synchronize()
+        p32 = i8.int8_conv_plain(x, w, scale, b, out="int32", **kw)
+        pbf = i8.epilogue(p32, scale, b, s_x=kw["s_x"], activation="mish", out="bf16")
+        pi8 = i8.epilogue(p32, scale, b, s_x=kw["s_x"], activation="mish", out="int8",
+                          inv_s_next=inv_next)
+        torch.cuda.synchronize()
+        eq32 = torch.equal(g32, p32)
+        abs_err, ulps = bf16_ulp_error(gbf, pbf)
+        d8 = int((gi8.int() - pi8.int()).abs().max())
+        k_ms, p_ms = timed_pair(lambda: i8.int8_conv(x, w, scale, b, **kw),
+                                lambda: i8.int8_conv_plain(x, w, scale, b, **kw), 5)
+        ok = eq32 and ulps <= 1.0 and d8 <= 1 and bool(torch.isfinite(gbf.float()).all())
+        print(f"[kernels] int8_conv k{k} s{stride} {c_in}->{c_out} @{hw} x{count}: "
+              f"int32_equal={eq32} bf16 max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} "
+              f"int8 max_diff={d8} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append((k, stride, c_in, c_out, hw))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        rec["ms"] += k_ms * count
+        rec["plain_ms"] += p_ms * count
+        del x, w, g32, gbf, gi8, p32, pbf, pi8
+    if failed:
+        raise AssertionError(f"int8 kernel vs plain disagree: {failed}")
+    return rec
+
+
 def make_scenes(r: int):
     """Set-up, untimed: the 8 cropped synthetic point clouds of request r."""
     from complex_yolov4_tpu_torch.data import bev, synthetic
@@ -189,28 +343,68 @@ def host_coo(clouds):
     return bev.pack_cells_flat(list(cells_l), list(keys_l), total + total // 8)
 
 
-def phase_slice(dev):
+def raster(req, dev, frames):
     from complex_yolov4_tpu_torch.data import bev
-    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+
+    cells, keys, dens = (torch.as_tensor(a, device=dev) for a in req)
+    return bev.make_bev_map_from_cells(cells, keys, dens, frames)
+
+
+def counters():
+    from complex_yolov4_tpu_torch.ops import conv3x3, fused_stage, int8_conv, stem_conv
+
+    return {"stem_conv3x3": stem_conv.conv3x3_stem, "conv3x3_fused": conv3x3.conv3x3_fused,
+            "fused_stage": fused_stage.apply_segment, "int8_conv": int8_conv.int8_conv}
+
+
+def build_models(dev):
+    """(spec, path-1 model, path-2 model): complex_yolov4 @608 bf16 from
+    seed-0 weights; path 2 quantized by `default_skip` after calibration on
+    2 synthetic frames (as bench.py does), with both fused CSP stages."""
+    from complex_yolov4_tpu_torch.data import bev, synthetic
+    from complex_yolov4_tpu_torch.models import quantize as qz
     from complex_yolov4_tpu_torch.models import weights, zoo
     from complex_yolov4_tpu_torch.models.network import Darknet
-    from complex_yolov4_tpu_torch.ops import conv3x3 as conv_mod
-    from complex_yolov4_tpu_torch.ops import stem_conv as stem_mod
 
     spec = zoo.get_model_spec(MODEL)
     params, state = weights.init_params_np(spec, SEED)
-    model = Darknet(spec, weights.from_jax_params(spec, params, state),
-                    compute_dtype=torch.bfloat16, device=dev)
-    routes = model.routes(608)
-    print(f"[slice] {MODEL} @608 bf16, {len(spec.layers)} layers, kernel routes {routes}")
-    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64)
+    folded = weights.fold_batchnorm(spec, params, state)
+    st = weights.from_folded(spec, folded)
+    path1 = Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev)
+    clouds = [bev.remove_points_outside(synthetic.sample_scene(
+        np.random.default_rng(100 + i))[0]) for i in range(2)]
+    cells_l, keys_l = zip(*(bev.aggregate_bev_cells(c) for c in clouds))
+    req = bev.pack_cells_flat(list(cells_l), list(keys_l), sum(len(c) for c in cells_l))
+    calib = raster(req, dev, 2).cpu().numpy()
+    t0 = time.perf_counter()
+    tree = qz.quantize_model(spec, folded, [calib], device=dev)
+    print(f"[slice] int8 PTQ: {len(tree)} convs calibrated on 2 frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    path2 = Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev,
+                    quant=weights.from_jax_quant(spec, tree), fused_stages=True)
+    return spec, path1, path2
 
+
+def serve_path(label, spec, model, expected, compare_batch, dev):
+    """Serve REQUESTS requests of BATCH through make_inference_fn; the
+    launch counts are set to 0 just before and read just after. Returns
+    the launches and the device-part ms of each request."""
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+
+    routes = model.routes(608)
+    kinds = {}
+    for r in routes.values():
+        kinds[r] = kinds.get(r, 0) + 1
+    print(f"[slice] {label}: {MODEL} @608 bf16, {len(spec.layers)} layers, "
+          f"routed layers by kernel {kinds}")
+    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64)
     scenes = [make_scenes(r) for r in range(REQUESTS)]
     infer(model, *host_coo(make_scenes(-1)), BATCH)  # warm-up
     torch.cuda.synchronize()
 
-    stem_mod.conv3x3_stem.launches = 0
-    conv_mod.conv3x3_fused.launches = 0
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
     host_s, infer_s, outs = [], [], []
     for r in range(REQUESTS):
         t0 = time.perf_counter()
@@ -222,47 +416,105 @@ def phase_slice(dev):
         host_s.append(t1 - t0)
         infer_s.append(t2 - t1)
         outs.append((req, dets, masks))
-    launches = {"stem_conv3x3": stem_mod.conv3x3_stem.launches,
-                "conv3x3_fused": conv_mod.conv3x3_fused.launches}
-    print(f"[slice] launches over {REQUESTS} requests: {launches}")
-    expected = {k: n * REQUESTS for k, n in LAUNCHES_PER_REQUEST.items()}
-    if launches != expected:
-        raise AssertionError(f"main path did not run through the kernels: {launches}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    print(f"[slice] {label} launches over {REQUESTS} requests: {launches}")
+    want = {k: n * REQUESTS for k, n in expected.items()}
+    if launches != want:
+        raise AssertionError(f"{label} did not run through the kernels: {launches} != {want}")
 
     for r, (req, dets, masks) in enumerate(outs):
         if tuple(dets.shape) != (BATCH, 64, 9) or tuple(masks.shape) != (BATCH, 64):
             raise AssertionError(f"request {r}: shapes {tuple(dets.shape)} {tuple(masks.shape)}")
         if not bool(torch.isfinite(dets).all()):
             raise AssertionError(f"request {r}: non-finite detections")
-        print(f"[slice] request {r}: cells={int((req[0] < BATCH * 609 * 609).sum())} "
+        print(f"[slice] {label} request {r}: cells={int((req[0] < BATCH * 609 * 609).sum())} "
               f"detections/frame={masks.sum(1).int().tolist()} "
               f"host_ms={host_s[r] * 1e3:.2f} infer_ms={infer_s[r] * 1e3:.2f}")
     e2e = np.array(host_s) + np.array(infer_s)
-    print(f"[slice] ms/request e2e (host COO + device) mean={e2e.mean() * 1e3:.2f} "
+    print(f"[slice] {label} ms/request e2e (host COO + device) mean={e2e.mean() * 1e3:.2f} "
           f"frames/s={BATCH / e2e.mean():.2f}; device part (raster..NMS) "
           f"mean={np.mean(infer_s) * 1e3:.2f} ms frames/s={BATCH / np.mean(infer_s):.2f}")
 
     # decoded heads: kernel path vs all-plain path on the card
-    req = outs[0][0]
     with torch.inference_mode():
-        cells, keys, dens = (torch.as_tensor(a, device=dev) for a in req)
-        img = bev.make_bev_map_from_cells(cells, keys, dens, BATCH).permute(0, 3, 1, 2)
+        img = raster(outs[0][0], dev, BATCH)[:compare_batch].permute(0, 3, 1, 2)
         got = model(img, kernels=True)
         ref = model(img, kernels=False)
     torch.cuda.synchronize()
     n_boxes = spec.num_boxes(608)
-    if tuple(got.shape) != (BATCH, n_boxes, 10) or not bool(torch.isfinite(got).all()):
+    if tuple(got.shape) != (compare_batch, n_boxes, 10) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"decoded heads: shape {tuple(got.shape)} or non-finite")
     diff = (got - ref).abs().amax(dim=(0, 1))
     scale = ref.abs().amax(dim=(0, 1)) + 1e-6
     rel = float((diff / scale).max())
     prob = float(diff[6:].max())
-    print(f"[slice] decoded ({BATCH}, {n_boxes}, 10) kernel vs plain path: "
+    print(f"[slice] {label} decoded ({compare_batch}, {n_boxes}, 10) kernel vs plain path: "
           f"max rel err per column={rel:.3g} (tol {DECODED_REL_TOL}), "
           f"max abs err conf/cls={prob:.3g} (tol {PROB_ABS_TOL})")
     if rel > DECODED_REL_TOL or prob > PROB_ABS_TOL:
-        raise AssertionError("kernel path and plain path disagree")
-    return launches
+        raise AssertionError(f"{label}: kernel path and plain path disagree")
+    return launches, infer_s
+
+
+def layerwise_segments(model, dev):
+    """What path 1's executor spends on the layers the fused stages take:
+    prefix forwards stopped after layers 1, 10, 11 and 23, batch 8, CUDA
+    events; layers 2-10 = prefix(10) - prefix(1), 12-23 = prefix(23) -
+    prefix(11)."""
+    img = raster(host_coo(make_scenes(0)), dev, BATCH).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        ms = {k: time_ms(lambda k=k: model(img, stop_after=k), 5) for k in (1, 10, 11, 23)}
+    a, b = ms[10] - ms[1], ms[23] - ms[11]
+    print(f"[slice] path 1 executor (cuDNN 1x1 + eager epilogues + 3x3 kernel) on the fused "
+          f"layers, batch 8: layers 2-10 {a:.4f} ms, layers 12-23 {b:.4f} ms, "
+          f"sum {a + b:.4f} ms (prefix differences)")
+
+
+def phase_split(label, model, dev):
+    """One request of 8: host COO, raster, network, NMS with a sync around
+    each (5 reps), then torch.profiler over 2 requests: device busy time
+    and the 25 device-side rows with the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+    from complex_yolov4_tpu_torch.ops.nms import nms_batch
+
+    clouds = make_scenes(0)
+    parts = {"host_coo": [], "h2d_raster": [], "network": [], "nms": []}
+    with torch.inference_mode():
+        for _ in range(6):
+            t0 = time.perf_counter()
+            req = host_coo(clouds)
+            t1 = time.perf_counter()
+            img = raster(req, dev, BATCH)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            dec = model(img.permute(0, 3, 1, 2))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            nms_batch(dec, 0.5, 0.5, 64)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[k].append(v * 1e3)
+    print(f"[split] {label} ms/request (5 reps after 1 warm-up): " + ", ".join(
+        f"{k} {np.mean(v[1:]):.2f} (min {np.min(v[1:]):.2f})" for k, v in parts.items()))
+    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64)
+    req = host_coo(clouds)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            infer(model, *req, BATCH)
+        torch.cuda.synchronize()
+    # device-side rows only (kernels, memcpy, memset): the rows of the host
+    # ops that launched them carry the same device time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[split] {label} device busy over 2 requests: {total:.2f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"[split] {label}  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
 
 
 def main() -> None:
@@ -270,15 +522,22 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     records = phase_kernels(dev)
-    launches = phase_slice(dev)
-    replaces = {"stem_conv3x3": "complex_yolov4_tpu/ops/stem_conv.py:112",
-                "conv3x3_fused": "complex_yolov4_tpu/ops/pallas_conv.py:92"}
-    kernels = [{"name": k, "route": "cuda", "source": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
-                "replaces": replaces[k], "launches": launches[k],
-                "max_abs_err": records[k]["max_abs_err"], "ms": records[k]["ms"],
-                "plain_ms": records[k]["plain_ms"]} for k in ("stem_conv3x3", "conv3x3_fused")]
-    print("[kernels] ms and plain_ms: per request of 8 frames, summed over the "
-          "main-path layers each kernel takes")
+    records["fused_stage"] = phase_fused(dev)
+    records["int8_conv"] = phase_int8(dev)
+    spec, path1, path2 = build_models(dev)
+    l1, _ = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
+    layerwise_segments(path1, dev)
+    l2, _ = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
+    if "--split" in sys.argv[1:]:
+        phase_split("path1", path1, dev)
+        phase_split("path2", path2, dev)
+    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+                "launches": l1[k] + l2[k], "max_abs_err": records[k]["max_abs_err"],
+                "ms": records[k]["ms"], "plain_ms": records[k]["plain_ms"]}
+               for k in KERNEL_NAMES]
+    print("[kernels] launches: paths 1 and 2 together; ms and plain_ms: per request of 8 "
+          "frames, summed over the main-path layers each kernel takes (3x3: layers 1, 6, 11, "
+          "16, 19; fused stage: segments 2-10 and 12-23; int8: the 68 quantized convs)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

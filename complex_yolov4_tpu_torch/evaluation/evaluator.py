@@ -4,6 +4,12 @@ Counterpart of `complex_yolov4_tpu/evaluation/evaluator.py`
 `make_inference_fn(from_cells=True)` for the flat COO layout at the native
 608 raster (no resize). The weights are the model's buffers on its device;
 there is no per-call weight upload and no cache keyed on object identity.
+
+The model decides how the network runs: a bf16 `Darknet` serves path 1
+(stem and 3x3 kernels, cuDNN elsewhere); a `Darknet(quant=...,
+fused_stages=True)` serves path 2, the JAX package's `FUSED_STAGE=1
+bench.py` configuration (int8 PTQ convs on the int8 kernel, the CSP stages
+on the fused-stage kernel), through this same function.
 """
 
 from __future__ import annotations

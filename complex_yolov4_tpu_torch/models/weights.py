@@ -5,8 +5,9 @@ The JAX package keeps parameters as ``{"layer{i}": {"w": HWIO, "bn_scale",
 {"mean", "var"}}``. Here those trees arrive as numpy arrays (no JAX
 import): `fold_batchnorm` folds BN into the conv exactly as
 `complex_yolov4_tpu/models/network.py` `fold_batchnorm` does (float64 math,
-float32 result), and `from_jax_params` turns the folded tree into the
-port's module state. `init_params_np` makes seeded random parameters in the
+float32 result), `from_folded` / `from_jax_params` turn the folded tree into
+the port's module state, and `from_jax_quant` turns an int8 quant tree
+into the int8 state. `init_params_np` makes seeded random parameters in the
 same tree layout, so a run on a machine without JAX has weights.
 """
 
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..ops import int8_conv
 from .spec import ConvSpec, NetSpec
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, the JAX package's too
@@ -45,16 +47,46 @@ def fold_batchnorm(spec: NetSpec, params: Dict, state: Dict) -> Dict:
     return folded
 
 
+def from_folded(spec: NetSpec, folded: Dict) -> Dict[str, torch.Tensor]:
+    """A BN-folded tree (numpy, ``{"layer{i}": {"w": HWIO, "b"}}``) -> the
+    port's module state: ``{"layer{i}.weight": OIHW f32, "layer{i}.bias":
+    f32}`` per conv (what `models.network.Darknet` takes)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, p in folded.items():
+        w = np.asarray(p["w"], np.float32)
+        out[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+        out[f"{key}.bias"] = torch.from_numpy(np.array(p["b"], np.float32))
+    return out
+
+
 def from_jax_params(spec: NetSpec, params_np: Dict, state_np: Dict
                     ) -> Dict[str, torch.Tensor]:
-    """JAX param/state trees (numpy) -> the port's module state:
-    ``{"layer{i}.weight": OIHW f32, "layer{i}.bias": f32}`` per conv, BN
-    folded (what `models.network.Darknet` takes)."""
+    """JAX param/state trees (numpy) -> the port's module state, BN folded
+    (`from_folded` of `fold_batchnorm`)."""
+    return from_folded(spec, fold_batchnorm(spec, params_np, state_np))
+
+
+def from_jax_quant(spec: NetSpec, quant_np: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX quant tree (numpy, ``{"layer{i}": {"w_i8": HWIO int8,
+    "w_scale", "b", "s_x"}}``, from `models.quantize.make_quant` of either
+    package) -> `Darknet`'s int8 state: ``layer{i}.w_i8`` (C_out, k*k*C_in)
+    int8 with columns in (ky, kx, ci) order, ``layer{i}.w_scale`` and
+    ``layer{i}.b`` (C_out,) f32, ``layer{i}.s_x`` a float32 scalar."""
     out: Dict[str, torch.Tensor] = {}
-    for key, p in fold_batchnorm(spec, params_np, state_np).items():
-        out[f"{key}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(p["w"].transpose(3, 2, 0, 1)))
-        out[f"{key}.bias"] = torch.from_numpy(p["b"])
+    for i, layer in enumerate(spec.layers):
+        key = f"layer{i}"
+        if key not in quant_np:
+            continue
+        if not isinstance(layer, ConvSpec):
+            raise ValueError(f"{key} is not a conv")
+        q = quant_np[key]
+        w = np.asarray(q["w_i8"])
+        if w.dtype != np.int8 or w.shape != (layer.size, layer.size, w.shape[2], layer.filters):
+            raise ValueError(f"{key}: w_i8 must be HWIO int8, got {w.shape} {w.dtype}")
+        out[f"{key}.w_i8"] = int8_conv.pack_weight(torch.from_numpy(np.array(w)))
+        out[f"{key}.w_scale"] = torch.from_numpy(np.array(q["w_scale"], np.float32))
+        out[f"{key}.b"] = torch.from_numpy(np.array(q["b"], np.float32))
+        out[f"{key}.s_x"] = torch.tensor(np.float32(q["s_x"]), dtype=torch.float32)
     return out
 
 

@@ -21,7 +21,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -38,7 +39,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -47,20 +48,40 @@ def library_path() -> Path:
 
 def build() -> str:
     """Compile the kernels if the library for the current sources is
-    missing; returns nvcc's log (its -Xptxas -v register and shared-memory
-    lines), kept beside the library for later processes."""
+    missing: one nvcc per source, all started together, then one link.
+    Returns nvcc's log (its -Xptxas -v register and shared-memory lines),
+    kept beside the library for later processes."""
     so = library_path()
     log = so.with_suffix(".log")
     if so.exists() and log.exists():
         return log.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
-    tmp_log = log.with_name(f"{log.stem}.{os.getpid()}.tmp.log")
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    texts, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        texts.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    text = "".join(texts)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{text}")
+    tmp = so.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+    tmp_log = log.with_name(f"{tag}.tmp.log")
     tmp_log.write_text(text)
     os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
     os.replace(tmp_log, log)
@@ -69,7 +90,8 @@ def build() -> str:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with argtypes set:
-    every pointer and the stream as c_void_p, every size as c_int."""
+    every pointer and the stream as c_void_p, every size as c_int, every
+    scale as c_float."""
     global _lib
     if _lib is None:
         build()
@@ -79,6 +101,11 @@ def load() -> ctypes.CDLL:
         lib.cyv4_stem_conv3x3.restype = i
         lib.cyv4_conv3x3.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
         lib.cyv4_conv3x3.restype = i
+        lib.cyv4_fused_stage.argtypes = [vp, vp, vp, vp, vp] + [i] * 9 + [vp]
+        lib.cyv4_fused_stage.restype = i
+        f = ctypes.c_float
+        lib.cyv4_int8_conv.argtypes = [vp] * 5 + [i] * 7 + [f, i, i, f, vp]
+        lib.cyv4_int8_conv.restype = i
         lib.cyv4_error_string.argtypes = [i]
         lib.cyv4_error_string.restype = ctypes.c_char_p
         _lib = lib
