@@ -23,6 +23,21 @@ fallback):
    - the int8 kernel at each distinct (k, stride, C_in, C_out, H) of the
      68 quantized convs of complex_yolov4 at 608, batch 8: int32 sums
      equal, bf16 outputs within 1 ulp, requantized int8 within 1;
+   every timed shape also prints two yardsticks beside kernel_ms:
+   - bound_ms, the least time the card could take for the same work: the
+     larger of its bytes (each input read once, each output written once)
+     over 3.35 TB/s and its operations over the bf16 or int8 tensor-core
+     peak, from the shapes (`bound_ms`); kernel_ms / bound_ms is how far
+     the kernel is from the card's limit;
+   - library_ms, one PyTorch call computing the same function where there
+     is one: for the stem and the 3x3 kernel one cuDNN `F.conv2d` (bf16,
+     channels_last input and weight, bias, no activation, autotuned for
+     that timing only); for the int8 conv's 1x1 layers one `torch._int_mm`
+     (int8 -> int32 sums, no dequantization, bias or activation), summed
+     over those layers only and printed beside the kernel's time on them;
+     null, with the reason printed, for the int8 3x3 layers and the fused
+     stage, which no single PyTorch call computes. A kernel slower than
+     library_ms loses to the library. The port never calls it;
 4. slice — complex_yolov4 at 608, full width, bf16, random weights from
    seed 0, serves 4 requests of 8 synthetic scenes through the port's
    `make_inference_fn(from_cells=True)` (host COO aggregation, device
@@ -91,6 +106,47 @@ REPLACES = {"stem_conv3x3": "complex_yolov4_tpu/ops/stem_conv.py:112",
             "int8_conv": "complex_yolov4_tpu/models/network.py:456"}
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# HBM bytes/s and tensor-core operations/s by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+
+
+def bound_ms(bytes_moved: float, ops: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    the work, the larger of its bytes (each input read once, each output
+    written once) over the HBM rate and its operations over the tensor-core
+    peak for their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_work(b, h, w, c_in, c_out, k, stride, x_bytes, out_bytes, w_bytes):
+    """(bytes, operations) of one k x k conv with a bias, from its shapes:
+    x (b, h, w, c_in) read once, weight and bias read once, out (b, h/s,
+    w/s, c_out) written once; 2 operations per multiply-add."""
+    ho, wo = h // stride, w // stride
+    moved = (b * h * w * c_in * x_bytes + k * k * c_in * c_out * w_bytes + c_out * 4
+             + b * ho * wo * c_out * out_bytes)
+    return moved, 2.0 * b * ho * wo * c_out * k * k * c_in
+
+
+def new_record():
+    return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bytes_bound_ms": 0.0, "library_ms": 0.0}
+
+
+def add_bound(rec, moved, ops, kind, count=1):
+    """Add one shape's bound (times `count` layers) to a kernel's record;
+    returns the shape's (ms, bound_by)."""
+    ms, by = bound_ms(moved, ops, kind)
+    rec["bound_ms"] += ms * count
+    if by == "bytes":
+        rec["bytes_bound_ms"] += ms * count
+    return ms, by
+
+
 def bf16_ulp_error(got: torch.Tensor, ref: torch.Tensor, floor_frac: float = 2.0 ** -10):
     """(max abs error, max error in bf16 ulps of the reference). Values
     below floor_frac * max|ref| are measured in the ulp of that floor."""
@@ -122,6 +178,28 @@ def timed_pair(kernel_fn, plain_fn, reps: int):
     k2 = time_ms(kernel_fn, reps)
     p2 = time_ms(plain_fn, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def library_conv_ms(x_nhwc, w_packed, bias, stride, reps: int) -> float:
+    """ms of one cuDNN `F.conv2d` computing the same conv (bias, no
+    activation) on the channels_last view of the kernel's input: the
+    yardstick of `library_ms`, which the port never calls. An f32 input (the
+    stem's raster) is cast to bf16 first, outside the timing. cuDNN's
+    autotuner is on for this timing only."""
+    import torch.nn.functional as F
+
+    c_in, c_out = x_nhwc.shape[-1], w_packed.shape[1]
+    x = x_nhwc.to(torch.bfloat16).permute(0, 3, 1, 2)
+    # channels_last like x, so that no call converts it inside the timing
+    w = (w_packed.reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+         .contiguous(memory_format=torch.channels_last))
+    b = bias.to(torch.bfloat16)
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return time_ms(lambda: F.conv2d(x, w, b, stride=stride, padding=1), reps)
+    finally:
+        torch.backends.cudnn.benchmark = saved
 
 
 def phase_device():
@@ -167,43 +245,53 @@ def phase_kernels(dev):
                 conv_mod.pack_weight(torch.from_numpy(w)).to(dev),
                 torch.from_numpy(b).to(dev))
 
-    results = []
+    # (label, key, x, w, b, stride, kernel fn, plain fn, timing reps)
+    cases = []
     x, w, b = operands(608, 3, 32, torch.float32)
-    k_out = stem_mod.conv3x3_stem(x, w, b, activation="mish")
-    torch.cuda.synchronize()
-    p_out = stem_mod.stem_plain(x, w, b, activation="mish")
-    torch.cuda.synchronize()
-    results.append(("stem L0", tuple(x.shape), 32, 1, k_out, p_out,
-                    *timed_pair(lambda: stem_mod.conv3x3_stem(x, w, b, activation="mish"),
-                                lambda: stem_mod.stem_plain(x, w, b, activation="mish"), 20)))
+    cases.append(("stem L0", "stem_conv3x3", x, w, b, 1,
+                  lambda x, w, b, s: stem_mod.conv3x3_stem(x, w, b, activation="mish"),
+                  lambda x, w, b, s: stem_mod.stem_plain(x, w, b, activation="mish"), 20))
     for name, hw, c_in, c_out, stride in CONV3X3_LAYERS:
         x, w, b = operands(hw, c_in, c_out, torch.bfloat16)
-        kw = {"stride": stride, "activation": "mish"}
-        k_out = conv_mod.conv3x3_fused(x, w, b, **kw)
-        torch.cuda.synchronize()
-        p_out = conv_mod.conv3x3_plain(x, w, b, **kw)
-        torch.cuda.synchronize()
-        results.append((f"conv3x3 {name}", tuple(x.shape), c_out, stride, k_out, p_out,
-                        *timed_pair(lambda: conv_mod.conv3x3_fused(x, w, b, **kw),
-                                    lambda: conv_mod.conv3x3_plain(x, w, b, **kw), 10)))
-        del x, w, b
+        cases.append((f"conv3x3 {name}", "conv3x3_fused", x, w, b, stride,
+                      lambda x, w, b, s: conv_mod.conv3x3_fused(x, w, b, stride=s,
+                                                                activation="mish"),
+                      lambda x, w, b, s: conv_mod.conv3x3_plain(x, w, b, stride=s,
+                                                                activation="mish"), 10))
+    del x, w, b
 
-    records = {}
+    records = {"stem_conv3x3": new_record(), "conv3x3_fused": new_record()}
     failed = []
-    for name, shape, c_out, stride, k_out, p_out, k_ms, p_ms in results:
+    for name, key, x, w, b, stride, kernel, plain, reps in cases:
+        k_out = kernel(x, w, b, stride)
+        torch.cuda.synchronize()
+        p_out = plain(x, w, b, stride)
+        torch.cuda.synchronize()
         abs_err, ulps = bf16_ulp_error(k_out, p_out)
         ok = (k_out.shape == p_out.shape and k_out.dtype == torch.bfloat16
               and bool(torch.isfinite(k_out.float()).all()) and ulps <= 1.0)
-        print(f"[kernels] {name} x{shape} -> {c_out} s{stride}: max_abs_err={abs_err:.6g} "
-              f"max_err_ulps={ulps:.3f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"{'ok' if ok else 'FAIL'}")
+        del k_out, p_out
+        k_ms, p_ms = timed_pair(lambda: kernel(x, w, b, stride), lambda: plain(x, w, b, stride),
+                                reps)
+        lib_ms = library_conv_ms(x, w, b, stride, reps)
+        bsz, h, wd, c_in = x.shape
+        c_out = w.shape[1]
+        moved, ops = conv_work(bsz, h, wd, c_in, c_out, 3, stride, x.element_size(), 2, 2)
+        bnd, by = add_bound(records[key], moved, ops, "bf16")
+        print(f"[kernels] {name} x{tuple(x.shape)} -> {c_out} s{stride}: "
+              f"max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} kernel_ms={k_ms:.4f} "
+              f"bound_ms={bnd:.4f} ({by}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
+              f"library_ms={lib_ms:.4f} plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
-        key = "stem_conv3x3" if name.startswith("stem") else "conv3x3_fused"
-        r = records.setdefault(key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r = records[key]
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["ms"] += k_ms
         r["plain_ms"] += p_ms
+        r["library_ms"] += lib_ms
+    print("[kernels] library_ms: one cuDNN F.conv2d (bf16, channels_last, bias, "
+          "cudnn.benchmark on) for the same conv; it leaves out the activation, which "
+          "favours the library. A yardstick only: the port never calls it.")
     if failed:
         raise AssertionError(f"kernel vs plain disagree beyond 1 bf16 ulp: {failed}")
     return records
@@ -215,7 +303,8 @@ def phase_fused(dev):
     from complex_yolov4_tpu_torch.models import weights, zoo
     from complex_yolov4_tpu_torch.ops import fused_stage as fs
 
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rec = new_record()
+    rec["library_ms"] = None
     failed = []
     for n, (name, span, hw, batch) in enumerate(FUSED_CASES):
         spec = zoo.get_model_spec(name)
@@ -240,7 +329,15 @@ def phase_fused(dev):
             rec["ms"] += k_ms
             rec["plain_ms"] += p_ms
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            timing = f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+            # useful work only: each conv at the segment's output size (no
+            # halo recompute); the input, output and weights cross HBM once
+            ops = sum(2.0 * batch * hw * hw * o.cin * o.cout * (9 if o.kind == "conv3x3" else 1)
+                      for o in seg.ops if o.kind.startswith("conv"))
+            moved = (x.numel() * 2 + got.numel() * 2 + sw.w_flat.numel() * 2
+                     + sw.b_flat.numel() * 4)
+            bnd, by = add_bound(rec, moved, ops, "bf16")
+            timing = (f" kernel_ms={k_ms:.4f} bound_ms={bnd:.4f} ({by}: {moved / 1e6:.1f} MB, "
+                      f"{ops / 1e9:.2f} GFLOP) plain_ms={p_ms:.4f}")
         lay = sw.layout
         print(f"[kernels] fused_stage {name} {span[0]}-{span[1]} x{tuple(x.shape)} -> "
               f"{seg.cout}: window {lay.win_h}x{lay.win_w} halo {lay.halo} "
@@ -249,6 +346,9 @@ def phase_fused(dev):
         if not ok:
             failed.append(f"{name} {span}")
         del x, got, ref
+    print("[kernels] fused_stage library_ms: null, no single PyTorch call computes a CSP "
+          "stage; its reference is path 1's executor on the same layers (phase 4, "
+          "layerwise_segments)")
     if failed:
         raise AssertionError(f"fused stage vs plain beyond tolerance: {failed}")
     return rec
@@ -273,16 +373,29 @@ def int8_shapes():
     return shapes
 
 
+def library_int_mm_ms(x, w, reps: int) -> float:
+    """ms of one `torch._int_mm` (int8 x int8 -> int32, cuBLAS) computing a
+    1x1 stride-1 conv's sums: x (B, H, W, C_in) viewed as (B*H*W, C_in)
+    times w (C_out, C_in) transposed. It leaves out the dequantization, bias
+    and activation. The yardstick of the int8 row's `library_ms`, which the
+    port never calls."""
+    a, b = x.reshape(-1, x.shape[-1]), w.t()
+    return time_ms(lambda: torch._int_mm(a, b), reps)
+
+
 def phase_int8(dev):
     """int8 kernel vs its plain version at every distinct quantized shape,
     batch 8, in the int32, bf16 and int8 output modes; ms per request is
-    the bf16-mode time summed over the 68 layers."""
+    the bf16-mode time summed over the 68 layers. library_ms covers the 1x1
+    layers only (`library_int_mm_ms`): no PyTorch call computes an int8
+    3x3 conv on CUDA."""
     from complex_yolov4_tpu_torch.ops import int8_conv as i8
 
     shapes = int8_shapes()
     assert sum(shapes.values()) == 68, shapes
     rng = np.random.default_rng(SEED)
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rec = new_record()
+    rec.update(library_ms=None, library_layers=0, ms_on_library_layers=0.0)
     failed = []
     for (k, stride, c_in, c_out, hw), count in sorted(shapes.items()):
         x = torch.from_numpy(rng.integers(-127, 128, (BATCH, hw, hw, c_in)).astype(np.int8)).to(dev)
@@ -309,16 +422,32 @@ def phase_int8(dev):
         k_ms, p_ms = timed_pair(lambda: i8.int8_conv(x, w, scale, b, **kw),
                                 lambda: i8.int8_conv_plain(x, w, scale, b, **kw), 5)
         ok = eq32 and ulps <= 1.0 and d8 <= 1 and bool(torch.isfinite(gbf.float()).all())
+        # bf16-output mode, as timed: int8 x and w, f32 scale, bf16 out
+        moved, ops = conv_work(BATCH, hw, hw, c_in, c_out, k, stride, 1, 2, 1)
+        bnd, by = add_bound(rec, moved + 4 * c_out, ops, "int8", count)
+        lib = "null (3x3)"
+        if k == 1 and stride == 1:
+            lib_ms = library_int_mm_ms(x, w, 5)
+            lib = f"{lib_ms:.4f}"
+            rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms * count
+            rec["library_layers"] += count
+            rec["ms_on_library_layers"] += k_ms * count
         print(f"[kernels] int8_conv k{k} s{stride} {c_in}->{c_out} @{hw} x{count}: "
               f"int32_equal={eq32} bf16 max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} "
-              f"int8 max_diff={d8} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"{'ok' if ok else 'FAIL'}")
+              f"int8 max_diff={d8} kernel_ms={k_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+              f"library_ms={lib} plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append((k, stride, c_in, c_out, hw))
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
         rec["ms"] += k_ms * count
         rec["plain_ms"] += p_ms * count
         del x, w, g32, gbf, gi8, p32, pbf, pi8
+    print(f"[kernels] int8_conv library_ms: one torch._int_mm (cuBLAS int8 -> int32) per "
+          f"1x1 conv, summed over those {rec['library_layers']} of the 68 layers: "
+          f"{rec['library_ms']:.4f} ms against the kernel's {rec['ms_on_library_layers']:.4f} "
+          f"ms on the same layers. It leaves out the dequantization, bias and activation, "
+          f"which favours the library. No PyTorch call computes an int8 3x3 conv on CUDA, so "
+          f"the 3x3 layers have none. A yardstick only: the port never calls it.")
     if failed:
         raise AssertionError(f"int8 kernel vs plain disagree: {failed}")
     return rec
@@ -531,13 +660,25 @@ def main() -> None:
     if "--split" in sys.argv[1:]:
         phase_split("path1", path1, dev)
         phase_split("path2", path2, dev)
-    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-                "launches": l1[k] + l2[k], "max_abs_err": records[k]["max_abs_err"],
-                "ms": records[k]["ms"], "plain_ms": records[k]["plain_ms"]}
-               for k in KERNEL_NAMES]
-    print("[kernels] launches: paths 1 and 2 together; ms and plain_ms: per request of 8 "
-          "frames, summed over the main-path layers each kernel takes (3x3: layers 1, 6, 11, "
-          "16, 19; fused stage: segments 2-10 and 12-23; int8: the 68 quantized convs)")
+    kernels = []
+    for k in KERNEL_NAMES:
+        r = records[k]
+        row = {
+            "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+            "launches": l1[k] + l2[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if 2 * r["bytes_bound_ms"] >= r["bound_ms"] else "operations",
+            "library_ms": r["library_ms"]}
+        if "library_layers" in r:
+            row.update(library_layers=r["library_layers"],
+                       ms_on_library_layers=r["ms_on_library_layers"])
+        kernels.append(row)
+    print("[kernels] launches: paths 1 and 2 together; ms, plain_ms, bound_ms and "
+          "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
+          "takes (3x3: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and 12-23; int8: "
+          "the 68 quantized convs, but library_ms over its library_layers 1x1 convs only, "
+          "on which the kernel takes ms_on_library_layers); bound_by: what bounds the layers "
+          "holding most of bound_ms")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

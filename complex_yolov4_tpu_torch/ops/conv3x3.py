@@ -23,7 +23,7 @@ from .activations import ACT_CODES, act
 
 def channels_ok(c_in: int, c_out: int, size: int, stride: int) -> bool:
     """3x3, stride 1 or 2, C_in <= 128, C_out <= 128 and a multiple of 8
-    (16-byte stores)."""
+    (a quad of lanes stores whole 8-channel groups)."""
     return (size == 3 and stride in (1, 2) and c_in <= 128 and c_out <= 128
             and c_out % 8 == 0)
 
@@ -62,6 +62,17 @@ def conv3x3_plain(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     patches = im2col_nhwc(x.to(torch.bfloat16).float(), stride)
     y = patches @ w_packed.float() + bias.float()
     return act(y, activation).to(torch.bfloat16)
+
+
+def pad_channels(x: torch.Tensor, w_packed: torch.Tensor, c_pad: int):
+    """x (..., C_in) and w_packed (9*C_in, C_out) with C_in zero-padded to
+    c_pad: zero channels against zero weight rows leave every sum as it
+    was. Lets the kernels build a few C_in instances and take the rest."""
+    c_in = x.shape[-1]
+    if c_in == c_pad:
+        return x, w_packed
+    w = F.pad(w_packed.reshape(9, c_in, -1), (0, 0, 0, c_pad - c_in))
+    return F.pad(x, (0, c_pad - c_in)), w.reshape(9 * c_pad, -1)
 
 
 def check_operands(x, w_packed, bias, stride, activation, x_dtype, envelope):
@@ -106,6 +117,9 @@ def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
                    lambda h, w, ci, co, s: shape_ok(h, w, ci, co, 3, s))
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_packed, bias, stride=stride, activation=activation)
+    # the kernel is built for C_in 32, 64 and 128 (the main path's are 32
+    # and 64); any other C_in is zero-padded to the next of them
+    x, w_packed = pad_channels(x, w_packed, next(c for c in (32, 64, 128) if c >= x.shape[-1]))
     b, h, w, c_in = x.shape
     c_out = w_packed.shape[1]
     out = torch.empty((b, h // stride, w // stride, c_out), dtype=torch.bfloat16,

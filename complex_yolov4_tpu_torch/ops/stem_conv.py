@@ -17,14 +17,15 @@ import torch
 
 from . import _build
 from .activations import ACT_CODES
-from .conv3x3 import check_operands, conv3x3_plain
+from .conv3x3 import check_operands, conv3x3_plain, pad_channels
 
 MAX_C_IN = 14  # K = 9 * C_in <= 126, the TPU kernel's envelope too
 
 
 def shape_ok(c_in: int, c_out: int, size: int, stride: int) -> bool:
-    """3x3, stride 1, C_in <= 14, C_out a multiple of 8 up to 128 (the f32
-    weight must fit the block's shared memory)."""
+    """3x3, stride 1, C_in <= 14, C_out a multiple of 8 up to 128 (at most
+    four 32-channel groups over the block's 8 warps, each group's weight
+    held in registers)."""
     return (size == 3 and stride == 1 and 1 <= c_in <= MAX_C_IN
             and c_out % 8 == 0 and c_out <= 128)
 
@@ -49,6 +50,10 @@ def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
                    lambda h, w, ci, co, s: shape_ok(ci, co, 3, s))
     if x.device.type == "cpu":
         return stem_plain(x, w_packed, bias, activation=activation)
+    # the kernel is built for C_in 3 (the main path) and 14; any other C_in
+    # is zero-padded to 14
+    if x.shape[-1] != 3:
+        x, w_packed = pad_channels(x, w_packed, MAX_C_IN)
     b, h, w, c_in = x.shape
     c_out = w_packed.shape[1]
     out = torch.empty((b, h, w, c_out), dtype=torch.bfloat16, device=x.device)

@@ -80,8 +80,22 @@ def _folded(name, seed):
     return spec, jnet.fold_batchnorm(jspec, params, state)
 
 
-def _segment(name, span, seed=0):
-    spec, fparams = _folded(name, seed)
+@pytest.fixture(scope="module")
+def folded():
+    """`_folded(name, 0)` by model name, built once for the module: two
+    segment cases share each of complex_yolov4 and complex_yolov3."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _folded(name, 0)
+        return cache[name]
+
+    return get
+
+
+def _segment(name, span, spec_and_params):
+    spec, fparams = spec_and_params
     seg = next(s for s in tfs.plan_segments(spec, 608) if (s.start, s.end) == span)
     jseg = next(s for s in jfs.plan_segments(get_model_spec(name), 608)
                 if (s.start, s.end) == span)
@@ -147,8 +161,8 @@ def _emulate(seg, x, sw):
 
 
 @pytest.mark.parametrize("name,span", SEG_CASES)
-def test_plain_and_program_match_pallas(name, span):
-    seg, jseg, fparams, sw = _segment(name, span)
+def test_plain_and_program_match_pallas(name, span, folded):
+    seg, jseg, fparams, sw = _segment(name, span, folded(name))
     rng = np.random.default_rng(span[0] * 100 + len(name))
     x = np.asarray(jnp.asarray(rng.standard_normal((1, 76, 76, seg.cin)),
                                jnp.bfloat16).astype(jnp.float32))

@@ -37,21 +37,43 @@ def _max_ulps(got, ref, floor_frac=2.0 ** -10):
     return float(((g - r).abs() / ulp).max())
 
 
-def _operands(dev, b, hw, c_in, c_out, x_dtype, seed=0):
+def _operands(dev, b, hw, c_in, c_out, x_dtype, seed=0, fill="rand"):
+    """hw: H = W, or (H, W). fill "ones": every input and weight 1, bias 0."""
+    h, w_ = (hw, hw) if isinstance(hw, int) else hw
     rng = np.random.default_rng(seed)
-    x = rng.normal(0.0, 1.0, (b, hw, hw, c_in)).astype(np.float32)
+    x = rng.normal(0.0, 1.0, (b, h, w_, c_in)).astype(np.float32)
     bound = float(np.sqrt(1.0 / (9 * c_in)))
     w = rng.uniform(-bound, bound, (c_out, c_in, 3, 3)).astype(np.float32)
     bias = rng.normal(0.0, 0.1, c_out).astype(np.float32)
+    if fill == "ones":
+        x, w, bias = np.ones_like(x), np.ones_like(w), np.zeros_like(bias)
     return (torch.from_numpy(x).to(dev, x_dtype), conv_mod.pack_weight(torch.from_numpy(w)).to(dev),
             torch.from_numpy(bias).to(dev))
 
 
-@pytest.mark.parametrize("c_in,c_out,act,hw", [
-    (3, 32, "mish", 128), (6, 64, "leaky", 136), (12, 128, "linear", 64), (14, 128, "relu", 40)])
-def test_stem_kernel_matches_plain(c_in, c_out, act, hw):
+def _check_ones(got, c_in):
+    """All-ones input and weights, linear, stride 1: a corner sees 4 taps,
+    an edge 6, the inside 9 — a halo or zero-fill slip shows exactly."""
+    g = got.float()[..., 0]
+    h, w = g.shape[1:]
+    for y, x, taps in ((0, 0, 4), (h - 1, w - 1, 4), (0, w // 2, 6), (h // 2, 0, 6),
+                       (h - 1, w // 2, 6), (h // 2, w - 1, 6), (h // 2, w // 2, 9)):
+        assert bool((g[:, y, x] == taps * c_in).all()), (y, x, taps)
+
+
+# Each warp's tiles are 2 x 32 pixels: 136 and 200 leave ragged tiles;
+# C_out 96 leaves one warp group idle; batch 1 and 3. The kernel is built
+# for C_in 3, which loads windows by TMA (the box starts 1 float before the
+# row), and 14, which copies them with 4-byte cp.async; the wrapper
+# zero-pads 6 and 12 to 14.
+@pytest.mark.parametrize("c_in,c_out,act,hw,batch,fill", [
+    (3, 32, "mish", 128, 2, "rand"), (6, 64, "leaky", 136, 2, "rand"),
+    (12, 128, "linear", 64, 2, "rand"), (14, 128, "relu", 40, 2, "rand"),
+    (3, 32, "mish", (608, 200), 1, "rand"), (14, 96, "mish", (608, 200), 3, "rand"),
+    (3, 32, "linear", (130, 136), 1, "ones")])
+def test_stem_kernel_matches_plain(c_in, c_out, act, hw, batch, fill):
     dev = _cuda()
-    x, w, b = _operands(dev, 2, hw, c_in, c_out, torch.float32)
+    x, w, b = _operands(dev, batch, hw, c_in, c_out, torch.float32, fill=fill)
     n0 = stem_mod.conv3x3_stem.launches
     got = stem_mod.conv3x3_stem(x, w, b, activation=act)
     torch.cuda.synchronize()
@@ -59,14 +81,32 @@ def test_stem_kernel_matches_plain(c_in, c_out, act, hw):
     ref = stem_mod.stem_plain(x, w, b, activation=act)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert _max_ulps(got, ref) <= 1.0
+    if fill == "ones":
+        _check_ones(got, c_in)
 
 
-@pytest.mark.parametrize("c_in,c_out,stride,act,hw", [
-    (32, 64, 1, "mish", 128), (32, 64, 2, "mish", 256), (64, 128, 2, "leaky", 304),
-    (128, 128, 1, "linear", 130), (3, 32, 2, "leaky", 256), (64, 64, 1, "mish", 152)])
-def test_conv3x3_kernel_matches_plain(c_in, c_out, stride, act, hw):
+# Tiles are 4 x 16 output pixels x 64 channels, one per warpgroup on wgmma
+# (one per block on mma.sync where two window rings do not fit): 130 x 136
+# (stride 1) and 130 x 268 (stride 2, 65 x 134 out) leave ragged tiles;
+# L1's and L11's exact shapes at batch 1; C_in 32 and 64 load windows by
+# TMA in the 64- and 128-byte swizzles; the wrapper zero-pads C_in 3, 12,
+# 16, 24 and 48 to the next of 32, 64 and 128, the C_in the kernel is built
+# for; C_in 128 takes 16-byte copies and the stride at run time, wgmma with
+# 8 k16 steps per tap at stride 1 and mma.sync with one window at stride
+# 2; C_out 32 and 40 a part-filled channel tile; batch 1 at 130 leaves a
+# warpgroup with one tile fewer than its partner.
+@pytest.mark.parametrize("c_in,c_out,stride,act,hw,batch,fill", [
+    (32, 64, 1, "mish", 128, 2, "rand"), (32, 64, 2, "mish", 256, 2, "rand"),
+    (64, 128, 2, "leaky", 304, 2, "rand"), (128, 128, 1, "linear", 130, 2, "rand"),
+    (3, 32, 2, "leaky", 256, 2, "rand"), (64, 64, 1, "mish", 152, 2, "rand"),
+    (32, 64, 1, "mish", (130, 136), 3, "rand"), (64, 64, 2, "leaky", (130, 268), 1, "rand"),
+    (32, 64, 2, "mish", 608, 1, "rand"), (64, 128, 2, "mish", 304, 1, "rand"),
+    (12, 64, 1, "relu", 136, 3, "rand"), (24, 40, 2, "mish", (140, 260), 1, "rand"),
+    (16, 64, 1, "leaky", 130, 1, "rand"), (128, 128, 2, "mish", 256, 1, "rand"),
+    (48, 64, 1, "mish", 136, 1, "rand"), (64, 64, 1, "linear", (130, 136), 1, "ones")])
+def test_conv3x3_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, fill):
     dev = _cuda()
-    x, w, b = _operands(dev, 2, hw, c_in, c_out, torch.bfloat16)
+    x, w, b = _operands(dev, batch, hw, c_in, c_out, torch.bfloat16, fill=fill)
     n0 = conv_mod.conv3x3_fused.launches
     got = conv_mod.conv3x3_fused(x, w, b, stride=stride, activation=act)
     torch.cuda.synchronize()
@@ -74,6 +114,8 @@ def test_conv3x3_kernel_matches_plain(c_in, c_out, stride, act, hw):
     ref = conv_mod.conv3x3_plain(x, w, b, stride=stride, activation=act)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert _max_ulps(got, ref) <= 1.0
+    if fill == "ones":
+        _check_ones(got, c_in)
 
 
 def test_cuda_wrappers_raise_not_fall_back():

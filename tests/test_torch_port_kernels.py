@@ -36,10 +36,14 @@ def test_stem_plain_matches_pallas(c_in, c_out, activation):
     ref = np.asarray(stem_conv.conv3x3_stem(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), activation=activation,
         interpret=True), np.float32)
-    got = tstem.conv3x3_stem(*_torch_operands(x, w, bias, torch.float32),
-                             activation=activation)
+    xt, wt, bt = _torch_operands(x, w, bias, torch.float32)
+    got = tstem.conv3x3_stem(xt, wt, bt, activation=activation)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-2, atol=2e-2)
+    # the zero channels the CUDA wrappers pad C_in with leave the function as it is
+    padded = tstem.stem_plain(*tconv.pad_channels(xt, wt, tstem.MAX_C_IN), bt,
+                              activation=activation)
+    np.testing.assert_allclose(padded.float().numpy(), ref, rtol=2e-2, atol=2e-2)
 
 
 def test_stem_plain_edges_exact():
