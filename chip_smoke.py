@@ -55,11 +55,33 @@ fallback):
      conv 68 launches per request;
    on each path the decoded heads of the kernel path are compared with the
    all-plain path on the card (path 2 at batch 2: the plain int8 convs run
-   in float64).
+   in float64);
+5. evaluate — a synthetic KITTI tree of 16 val frames (the port's
+   `generate_kitti_dataset`, in a temporary directory) evaluated by the
+   port's `cli.evaluate.main` (complex_yolov4 @608, batch 8, bf16, conf
+   0.45, NMS k=256, rotated-IoU mAP) in four configurations, each with the
+   launch counts set to 0 just before it: points (the default: the loader
+   ships padded points, the card rasters them), `--cells_raster` (host COO
+   aggregation), `--host_raster` (host-rastered images), and `--quantize
+   int8 --calib_batches 1` with FUSED_STAGE=1 (path 2). Checks: the kernel
+   launches per batch are those `model.routes(608)` predicts (int8: stem 1,
+   3x3 2, fused stage 2, int8 conv 68; plus its calibration batch's stem 1
+   and 3x3 5); the card's points raster of one batch is within the
+   packed-mode budget of the host raster of the same frames; the val
+   targets fed as detections (conf 1) through `sample_statistics` on the
+   card give AP 1.0 for every class present; on one batch (2 frames) of each
+   configuration the decoded heads of the kernel path match the all-plain
+   path; every configuration keeps live detections after NMS. Prints per
+   configuration the mAP, the live detections, the loader's host ms per
+   batch (alone, no prefetch; the cells layout's capacity estimate timed
+   apart), and the device ms per batch (raster -> NMS, synced) and eval
+   frames/s of the CLI's run (cold: its first batch pays first-use costs)
+   and of a second `evaluate_map` pass on the same model (warm).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record, and the line before that nvidia-smi's name and
-power limit.
+the per-kernel JSON record (launches: the sum over the six served runs of
+phases 4 and 5), and the line before that nvidia-smi's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -101,6 +123,12 @@ FUSED_CASES = (("complex_yolov4", (2, 10), 304, 8), ("complex_yolov4", (12, 23),
                ("complex_yolov4_tiny", (2, 8), 152, 8), ("complex_yolov3", (2, 4), 304, 8),
                ("complex_yolov3", (6, 11), 152, 8), ("complex_yolov4", (12, 23), 76, 2))
 KERNEL_NAMES = ("stem_conv3x3", "conv3x3_fused", "fused_stage", "int8_conv")
+# phase 5: (label, extra CLI flags, FUSED_STAGE) of the evaluated configurations
+EVAL_FRAMES = 16
+EVAL_CONF = 0.45
+EVAL_CONFIGS = (("points", (), False), ("cells", ("--cells_raster",), False),
+                ("host", ("--host_raster",), False),
+                ("int8", ("--quantize", "int8", "--calib_batches", "1"), True))
 SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "fused_stage": "complex_yolov4_tpu_torch/csrc/fused_stage.cu",
@@ -601,7 +629,7 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
         kinds[r] = kinds.get(r, 0) + 1
     print(f"[slice] {label}: {MODEL} @608 bf16, {len(spec.layers)} layers, "
           f"routed layers by kernel {kinds}")
-    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64)
+    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
     scenes = [make_scenes(r) for r in range(REQUESTS)]
     infer(model, *host_coo(make_scenes(-1)), BATCH)  # warm-up
     torch.cuda.synchronize()
@@ -704,7 +732,7 @@ def phase_split(label, model, dev):
                 parts[k].append(v * 1e3)
     print(f"[split] {label} ms/request (5 reps after 1 warm-up): " + ", ".join(
         f"{k} {np.mean(v[1:]):.2f} (min {np.min(v[1:]):.2f})" for k, v in parts.items()))
-    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64)
+    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
     req = host_coo(clouds)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -721,6 +749,233 @@ def phase_split(label, model, dev):
               f"{e.key[:90]}")
 
 
+def expected_launches(model, batches: int, calib_batches: int):
+    """Kernel launches of an evaluation run, from the routes: per batch, one
+    per routed stem, 3x3 and int8 layer and one per fused segment, and per
+    int8 calibration batch those of the bf16 network (no int8, no fused
+    segments) that calibrates: the stem and the 3x3 kernel."""
+    from complex_yolov4_tpu_torch.models.network import kernel_routes
+
+    def count(routes):
+        n = dict.fromkeys(KERNEL_NAMES, 0)
+        for r in routes.values():
+            if r in ("stem", "conv3x3", "int8"):
+                n[{"stem": "stem_conv3x3", "conv3x3": "conv3x3_fused",
+                   "int8": "int8_conv"}[r]] += 1
+        n["fused_stage"] = len({r for r in routes.values() if r.startswith("fused_stage")})
+        return n
+
+    per_batch = count(model.routes(608))
+    calib = count(kernel_routes(model.spec, 608))
+    total = {k: per_batch[k] * batches + calib[k] * calib_batches for k in KERNEL_NAMES}
+    return per_batch, total
+
+
+def deferred_images(batch, dev):
+    from complex_yolov4_tpu_torch.data import bev
+
+    return bev.images_from_deferred_batch(
+        {k: torch.as_tensor(batch[k], device=dev) for k in
+         ("points", "point_mask", "flip", "holes", "hole_mask")}, 608)
+
+
+def batch_images(batch, dev):
+    """A loader batch of any layout -> its (B, 608, 608, 3) rasters on the card."""
+    from complex_yolov4_tpu_torch.data import bev
+
+    if "image" in batch:
+        return torch.as_tensor(batch["image"], device=dev)
+    if "cells" in batch:
+        cells, keys, dens = (torch.as_tensor(batch[k], device=dev)
+                             for k in ("cells", "cell_keys", "cell_dens"))
+        return bev.make_bev_map_from_cells(cells, keys, dens, batch["batch_cap"])[:batch["batch"]]
+    return deferred_images(batch, dev)
+
+
+def check_points_raster(root, dev):
+    """The card's points raster of one batch against the host raster of the
+    same frames: the JAX package's packed-mode budget (tests/test_data.py:
+    97-110)."""
+    from complex_yolov4_tpu_torch.data import loader as ld
+
+    loader = ld.create_val_loader(root, BATCH, device_raster=True)
+    batch = next(iter(loader))
+    got = deferred_images(batch, dev).cpu().numpy()
+    host = np.stack([loader.dataset.load_sample(i)[1] for i in range(BATCH)])
+    mismatched = np.abs(got - host).max(axis=-1) > 2.5e-3
+    err = np.abs(got[~mismatched] - host[~mismatched]).reshape(-1, 3)
+    ok = (mismatched.mean() < 1e-4 and err[:, 0].max() <= 1.0 / 510 + 1e-6
+          and err[:, 1].max() <= 3.1e-5 and err[:, 2].max() == 0.0)
+    print(f"[eval] points raster on the card vs host make_bev_map, {BATCH} frames: "
+          f"{int(mismatched.sum())} of {mismatched.size} cells differ (budget < 1e-4), "
+          f"max err intensity {err[:, 0].max():.3g} (<= 1/510), height {err[:, 1].max():.3g} "
+          f"(<= 3.1e-5), density {err[:, 2].max():.3g} (== 0) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("points raster on the card outside the packed-mode budget")
+
+
+def check_oracle(root, dev):
+    """The val targets fed as detections (conf 1) through `sample_statistics`
+    on the card: AP 1.0 for every class present."""
+    from complex_yolov4_tpu_torch.data import loader as ld
+    from complex_yolov4_tpu_torch.evaluation import metrics as M
+
+    stats, labels = [], []
+    for batch in ld.create_val_loader(root, BATCH):
+        for t, m in zip(batch["targets"], batch["target_mask"]):
+            live = t[m > 0.5]
+            dets = np.zeros((len(t), 9), np.float32)
+            dets[:len(live), :4] = live[:, 1:5] * 608
+            dets[:len(live), 4:6] = live[:, 5:7]
+            dets[:len(live), 6:8] = 1.0
+            dets[:len(live), 8] = live[:, 0]
+            dmask = (np.arange(len(t)) < len(live)).astype(np.float32)
+            stats.append(M.sample_statistics(torch.from_numpy(dets).to(dev),
+                                             torch.from_numpy(dmask).to(dev), t, m, 0.5, 608.0))
+            labels.append(live[:, 0])
+    out = M.summarize_map(stats, labels)
+    ok = bool(np.all(out["AP"] == 1.0)) and len(out["ap_class"]) > 0
+    print(f"[eval] oracle (val targets as detections, IoU on the card): classes "
+          f"{out['ap_class'].tolist()} AP {out['AP'].tolist()} mAP {float(out['mAP']):.4f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("oracle detections do not give AP 1.0")
+
+
+def check_heads(label, model, batch, dev, frames: int = 2):
+    """Decoded heads of the kernel path vs the all-plain path, on the first
+    `frames` frames of one batch."""
+    with torch.inference_mode():
+        img = batch_images(batch, dev)[:frames].permute(0, 3, 1, 2)
+        got = model(img, kernels=True)
+        ref = model(img, kernels=False)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite decoded heads")
+    diff = (got - ref).abs().amax(dim=(0, 1))
+    rel = float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max())
+    prob = float(diff[6:].max())
+    print(f"[eval] {label} decoded {tuple(got.shape)} kernel vs plain path: max rel err per "
+          f"column={rel:.3g} (tol {DECODED_REL_TOL}), max abs err conf/cls={prob:.3g} "
+          f"(tol {PROB_ABS_TOL})")
+    if rel > DECODED_REL_TOL or prob > PROB_ABS_TOL:
+        raise AssertionError(f"{label}: kernel path and plain path disagree")
+
+
+def eval_loader(root, flags):
+    """A val loader of the layout `flags` select; a cells loader has its
+    per-frame capacity estimate made already (returned in ms, else None)."""
+    from complex_yolov4_tpu_torch.data import loader as ld
+
+    loader = ld.create_val_loader(root, BATCH, device_raster="--host_raster" not in flags,
+                                  cells_raster="--cells_raster" in flags)
+    cap_ms = None
+    if loader.cells_raster:
+        t0 = time.perf_counter()
+        loader._cells_per_frame_cap()
+        cap_ms = (time.perf_counter() - t0) * 1e3
+    return loader, cap_ms
+
+
+def loader_ms(root, flags):
+    """Host ms per batch of the loader alone (no prefetch thread, the frame
+    pool on) over the 16 frames, the capacity estimate made before the
+    clock; and the estimate's ms (cells only, else None)."""
+    loader, cap_ms = eval_loader(root, flags)
+    loader.prefetch = 0
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n * 1e3, cap_ms
+
+
+def warm_pass(model, root, argv, flags):
+    """A second `evaluate_map` pass over the frames on the model of the CLI's
+    run, with the CLI's thresholds: every first-use cost is paid already."""
+    from complex_yolov4_tpu_torch.config.runtime import parse_eval_config
+    from complex_yolov4_tpu_torch.evaluation.evaluator import evaluate_map, make_inference_fn
+
+    config = parse_eval_config(argv)
+    loader, _ = eval_loader(root, flags)
+    infer = make_inference_fn(conf_thresh=config.conf_thresh, nms_thresh=config.nms_thresh,
+                              from_points=not (loader.cells_raster or "--host_raster" in flags),
+                              from_cells=loader.cells_raster)
+    timings = {}
+    evaluate_map(infer, model, loader, iou_threshold=config.iou_thresh, timings=timings)
+    return timings
+
+
+def phase_evaluate(dev):
+    """Phase 5: the port's `cli.evaluate.main` on 16 synthetic val frames in
+    the four configurations. Returns {label: launches}."""
+    import os
+    import tempfile
+
+    from complex_yolov4_tpu_torch.cli import evaluate
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    launches, rows = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
+        root = synthetic.generate_kitti_dataset(os.path.join(tmp, "kitti"), num_train=0,
+                                                num_val=EVAL_FRAMES, num_test=0, seed=0)
+        check_points_raster(root, dev)
+        check_oracle(root, dev)
+        fns = counters()
+        saved = os.environ.pop("FUSED_STAGE", None)
+        try:
+            for label, flags, fused in EVAL_CONFIGS:
+                if fused:
+                    os.environ["FUSED_STAGE"] = "1"
+                argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
+                        "--compute_dtype", "bfloat16", "--conf_thresh", str(EVAL_CONF),
+                        *flags]
+                cold = {}
+                for fn in fns.values():
+                    fn.launches = 0
+                out, model = evaluate.main(argv, timings=cold)
+                got = {k: fn.launches for k, fn in fns.items()}
+                os.environ.pop("FUSED_STAGE", None)
+                n_batches = len(cold["infer"])
+                per_batch, want = expected_launches(model, n_batches,
+                                                    1 if "--quantize" in flags else 0)
+                print(f"[eval] {label}: launches over {n_batches} batches {got}; "
+                      f"per batch from model.routes(608) {per_batch}")
+                if got != want or n_batches != EVAL_FRAMES // BATCH:
+                    raise AssertionError(f"{label} did not run through the kernels: {got} != {want}")
+                if per_batch != (LAUNCHES_PATH2 if fused else LAUNCHES_PATH1):
+                    raise AssertionError(f"{label}: unexpected routes {per_batch}")
+                if sum(cold["detections"]) == 0:
+                    raise AssertionError(f"{label}: no detection survived NMS at conf "
+                                         f"{EVAL_CONF}; the mAP would be vacuous")
+                launches[label] = got
+                first, _ = eval_loader(root, flags)
+                check_heads(label, model, next(iter(first)), dev)
+                warm = warm_pass(model, root, argv, flags)
+                host_ms, cap_ms = loader_ms(root, flags)
+                rows.append((label, float(out["mAP"]), host_ms, cap_ms, cold, warm))
+                del model
+        finally:
+            os.environ.pop("FUSED_STAGE", None)
+            if saved is not None:
+                os.environ["FUSED_STAGE"] = saved
+
+    def ms(xs):
+        return " ".join(f"{x * 1e3:.2f}" for x in xs)
+
+    fps = {}
+    for label, m_ap, host_ms, cap_ms, cold, warm in rows:
+        fps[label] = EVAL_FRAMES / warm["total"][0]
+        cap = "" if cap_ms is None else f" (+ capacity estimate {cap_ms:.2f} ms once)"
+        print(f"[eval] {label}: mAP={m_ap:.4f} live detections={sum(cold['detections'])} "
+              f"host_ms/batch (loader alone)={host_ms:.2f}{cap}")
+        for name, t in (("cold", cold), ("warm", warm)):
+            print(f"[eval] {label} {name}: device_ms/batch (raster..NMS, synced)="
+                  f"{ms(t['infer'])} match_ms/batch={ms(t['match'])} "
+                  f"wait_ms/batch={ms(t['load'])} eval frames/s={EVAL_FRAMES / t['total'][0]:.2f}")
+    print("[eval] warm eval frames/s, points layout vs COO cells: "
+          f"{fps['points']:.2f} vs {fps['cells']:.2f}")
+    return launches
+
+
 def main() -> None:
     name, count, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -735,12 +990,17 @@ def main() -> None:
     if "--split" in sys.argv[1:]:
         phase_split("path1", path1, dev)
         phase_split("path2", path2, dev)
+    del path1, path2
+    torch.cuda.empty_cache()
+    runs = {"serve path 1": l1, "serve path 2": l2, **{
+        f"eval {k}": v for k, v in phase_evaluate(dev).items()}}
     kernels = []
     for k in KERNEL_NAMES:
         r = records[k]
         row = {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-            "launches": l1[k] + l2[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": sum(run[k] for run in runs.values()),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if 2 * r["bytes_bound_ms"] >= r["bound_ms"] else "operations",
             "library_ms": r["library_ms"]}
@@ -748,7 +1008,9 @@ def main() -> None:
             row.update(library_layers=r["library_layers"],
                        ms_on_library_layers=r["ms_on_library_layers"])
         kernels.append(row)
-    print("[kernels] launches: paths 1 and 2 together; ms, plain_ms, bound_ms and "
+    print("[kernels] launches per run: " + "; ".join(
+        f"{name} {run}" for name, run in runs.items()))
+    print("[kernels] launches: the six runs together; ms, plain_ms, bound_ms and "
           "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
           "takes (3x3: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and 12-23; int8: "
           "the 68 quantized convs, but library_ms over its library_layers 1x1 convs only, "

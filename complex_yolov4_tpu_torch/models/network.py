@@ -108,7 +108,8 @@ class Darknet(nn.Module):
       spec: the (unfolded) layer IR; BN is already folded into `state`.
       state: ``{"layer{i}.weight": OIHW, "layer{i}.bias": (C_out,)}`` from
         `weights.from_jax_params`.
-      compute_dtype: torch.bfloat16 (kernels on) or torch.float32.
+      compute_dtype: torch.bfloat16 (kernels on) or torch.float32 (CPU only:
+        on CUDA it raises, since f32 has no kernel path yet).
       device: where the weights live; inputs must be on it too.
       quant: int8 state from `weights.from_jax_quant` (bf16 only): the convs
         it holds run on the int8 kernel.
@@ -131,6 +132,13 @@ class Darknet(nn.Module):
         bf16 = compute_dtype == torch.bfloat16
         if (quant or fused_stages) and not bf16:
             raise ValueError("int8 and fused stages run in bf16 compute only")
+        if torch.device(device).type == "cuda" and not bf16:
+            # f32 would route no layer to a kernel and run the whole network
+            # as plain PyTorch on the card
+            raise ValueError(
+                "f32 compute has no kernel path on CUDA: the 3x3 and stem kernels "
+                "are bf16 only; serve with compute_dtype=torch.bfloat16 (the CLI's "
+                "--compute_dtype bfloat16), or run f32 with --device cpu")
         self.spec = spec
         self.compute_dtype = compute_dtype
         self.fused_stages = fused_stages

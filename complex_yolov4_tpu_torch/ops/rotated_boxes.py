@@ -1,8 +1,8 @@
-"""Rotated-box IoU for NMS, as batched tensor ops.
+"""Rotated-box IoU for NMS and eval matching, as batched tensor ops.
 
 Counterpart of the IoU half of `complex_yolov4_tpu/ops/rotated_boxes.py`
 (`box_corners`, `_corners_xy`, `_inside_convex`, `_intersection_area_xy`,
-`intersection_area`, `rotated_iou`). The intersection of two convex quads
+`intersection_area`, `rotated_iou`, `pairwise_rotated_iou`). The intersection of two convex quads
 is the convex polygon whose vertices are (a) corners of A inside B,
 (b) corners of B inside A and (c) the 16 possible edge-edge crossings: 24
 masked candidates, ordered by angle around their centroid (comparison
@@ -123,3 +123,12 @@ def rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     a1 = boxes1[..., 2] * boxes1[..., 3]
     a2 = boxes2[..., 2] * boxes2[..., 3]
     return inter / torch.clamp(a1 + a2 - inter, min=_EPS)
+
+
+def pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """(N, 5) x (M, 5) -> (N, M) rotated IoU matrix (eval matching), on the
+    device the boxes lie on."""
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    b1 = boxes1[:, None, :].expand(n, m, 5)
+    b2 = boxes2[None, :, :].expand(n, m, 5)
+    return rotated_iou(b1, b2)

@@ -35,3 +35,21 @@ def rel_err(got, ref):
     """Max abs difference over (B, N), relative to each column's scale."""
     scale = np.abs(ref).max(axis=(0, 1)) + 1e-6  # per column
     return float((np.abs(got - ref).max(axis=(0, 1)) / scale).max())
+
+
+def gap_threshold(conf, k, min_gap=1e-4):
+    """A confidence threshold in a >= min_gap gap of the sorted (B, N)
+    confidences with between 4 and k-1 candidates at or above it in every
+    frame: top-k then takes all of them, and 1e-6 differences between two
+    correct implementations cannot move a candidate across it."""
+    s = np.sort(conf.ravel())[::-1]
+    best = None
+    for i in range(len(s) - 1):
+        t = 0.5 * (s[i] + s[i + 1])
+        counts = (conf >= t).sum(axis=1)
+        if counts.max() >= k:
+            break
+        if s[i] - s[i + 1] >= min_gap and counts.min() >= 4:
+            best = float(t)
+    assert best is not None, "no usable confidence gap"
+    return best

@@ -1,4 +1,5 @@
-"""Port CUDA kernels on the card vs their plain PyTorch versions.
+"""Port CUDA kernels on the card vs their plain PyTorch versions; the
+device points raster and the eval CLI on the card.
 
 Marked `gpu`: each test skips without a CUDA device (decided inside the
 test, so every worker collects the same tests). Run them on the card with
@@ -228,3 +229,57 @@ def test_new_wrappers_raise_not_fall_back():
     with pytest.raises(ValueError):
         i8.int8_conv(x, w, torch.ones(64), torch.zeros(64, device=dev), ksize=1, stride=1,
                      s_x=0.1, activation="mish")
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_points_raster_on_card(packed):
+    """The points raster on the card against the same function on the CPU:
+    the JAX package's budget (fewer than 1e-4 cells one cell over, where the
+    card divides by a reciprocal; the rest within 5e-5)."""
+    from complex_yolov4_tpu_torch.data import bev, synthetic
+
+    dev = _cuda()
+    pads = [bev.pad_points(bev.remove_points_outside(
+        synthetic.sample_scene(np.random.default_rng(s))[0]), 30_000) for s in (3, 11, 29)]
+    pts = torch.from_numpy(np.stack([p for p, _ in pads]))
+    msk = torch.from_numpy(np.stack([m for _, m in pads]))
+    got = bev.make_bev_map_points(pts.to(dev), msk.to(dev), packed=packed).cpu().numpy()
+    ref = bev.make_bev_map_points(pts, msk, packed=packed).numpy()
+    mismatched = np.abs(got - ref).max(axis=-1) > 5e-5
+    assert mismatched.mean() < 1e-4, f"{mismatched.sum()} cells differ"
+    np.testing.assert_allclose(got[~mismatched], ref[~mismatched], atol=5e-5)
+
+
+@pytest.mark.parametrize("flags", [(), ("--cells_raster",)], ids=["points", "cells"])
+def test_evaluate_cli_on_card(flags, tmp_path, capsys):
+    """The eval CLI on its default device, complex_yolov4_tiny in bf16: the
+    kernels launch once per routed layer per batch, and the report prints."""
+    from complex_yolov4_tpu_torch.cli import evaluate
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    _cuda()
+    root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=0, num_val=4,
+                                            num_test=0, seed=0)
+    conv_mod.conv3x3_fused.launches = stem_mod.conv3x3_stem.launches = 0
+    out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
+                                "--batch_size", "2", "--compute_dtype", "bfloat16", *flags])
+    routes = list(model.routes(608).values())
+    assert model.device.type == "cuda"
+    assert conv_mod.conv3x3_fused.launches == 2 * routes.count("conv3x3") > 0
+    assert stem_mod.conv3x3_stem.launches == 2 * routes.count("stem")
+    assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
+
+
+def test_evaluate_cli_f32_on_card_raises(tmp_path):
+    """The JAX CLI's default float32 has no kernel path on the card: the
+    port's CLI raises, naming --compute_dtype bfloat16, instead of serving
+    the whole network as plain PyTorch."""
+    from complex_yolov4_tpu_torch.cli import evaluate
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    _cuda()
+    root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=0, num_val=2,
+                                            num_test=0, seed=0)
+    with pytest.raises(ValueError, match="--compute_dtype bfloat16"):
+        evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
+                       "--batch_size", "2"])

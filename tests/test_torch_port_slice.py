@@ -28,24 +28,10 @@ from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 
+from tests._torch_port_util import gap_threshold
+
 K = 64
 NMS = 0.5
-
-
-def _gap_threshold(conf, k, min_gap=1e-4):
-    """A threshold in a >= min_gap gap of the sorted confidences with
-    between 4 and k-1 candidates at or above it in every frame."""
-    s = np.sort(conf.ravel())[::-1]
-    best = None
-    for i in range(len(s) - 1):
-        t = 0.5 * (s[i] + s[i + 1])
-        counts = (conf >= t).sum(axis=1)
-        if counts.max() >= k:
-            break
-        if s[i] - s[i + 1] >= min_gap and counts.min() >= 4:
-            best = float(t)
-    assert best is not None, "no usable confidence gap"
-    return best
 
 
 def test_slice_matches_jax():
@@ -71,7 +57,7 @@ def test_slice_matches_jax():
                                        jnp.asarray(dens), 2)
     decoded, _ = jnet.apply(fspec, fparams, {}, img, compute_dtype=jnp.float32,
                             use_pallas_conv=False, stem_pallas=False, batch_pack=None)
-    conf_thresh = _gap_threshold(np.asarray(decoded)[..., 6], K)
+    conf_thresh = gap_threshold(np.asarray(decoded)[..., 6], K)
 
     jinfer = jax_make_inference_fn(fspec, conf_thresh=conf_thresh, nms_thresh=NMS,
                                    max_boxes=K, compute_dtype=jnp.float32,
@@ -79,7 +65,8 @@ def test_slice_matches_jax():
     jd, jm = jinfer(fparams, {}, cells, keys, dens, 2)
     jd, jm = np.asarray(jd), np.asarray(jm)
 
-    infer = make_inference_fn(conf_thresh=conf_thresh, nms_thresh=NMS, max_boxes=K)
+    infer = make_inference_fn(conf_thresh=conf_thresh, nms_thresh=NMS, max_boxes=K,
+                              from_cells=True)
     td, tm = infer(model, cells, keys, dens, 2)
     assert td.shape == jd.shape == (2, K, 9) and tm.shape == jm.shape == (2, K)
     assert np.isfinite(td.numpy()).all()
