@@ -16,6 +16,11 @@ fallback):
      five complex_yolov4 main-path shapes (batch 8): at most 1 bf16 ulp
      apart (values below 2^-10 of the tensor's largest, where the f32 sum
      cancels, are held to the ulp of that floor);
+   - the 3x3 kernel's f32 instance (f32 x rounded to bf16 as it loads, f32
+     out: the contract of `pallas_conv.py` on an f32 x) at the same five
+     shapes: within 1e-4 of max |plain| (both round to bf16 the same way;
+     only the summation order differs); its library_ms is one f32 cuDNN
+     `F.conv2d` with TF32 off, as the port's f32 path runs;
    - the fused-stage kernel at (8, 304, 304, 64) segment 2-10 and (8, 152,
      152, 128) segment 12-23, the segments of complex_yolov4_tiny and
      complex_yolov3, and one 76-px batch-2 case (ragged tiles): max |diff|
@@ -26,8 +31,12 @@ fallback):
      dtype) of the 68 quantized convs of complex_yolov4 at 608, batch 8,
      with the input path 2 gives it (int8 from a chained producer, else
      bf16, quantized in the kernel): int32 sums equal, bf16 outputs within
-     1 ulp, requantized int8 within 1; beside each eager kernel_ms, its
-     device time (`device_ms`: CUDA-graph replay, no host launch cost);
+     1 ulp, requantized int8 within 1, f32 outputs (f32 compute) within
+     1e-5 of max |plain| (the fast exp and divide); beside each eager
+     kernel_ms, its device time (`device_ms`: CUDA-graph replay, no host
+     launch cost), and the times of the modes f32 compute runs: an int8
+     input (f32 compute quantizes every conv's input before the call),
+     int8 out on the chained convs and f32 out on the rest;
    every timed shape also prints two yardsticks beside kernel_ms:
    - bound_ms, the least time the card could take for the same work: the
      larger of its bytes (each input read once, each output written once)
@@ -77,18 +86,41 @@ fallback):
    apart), and the device ms per batch (raster -> NMS, synced) and eval
    frames/s of the CLI's run (cold: its first batch pays first-use costs)
    and of a second `evaluate_map` pass on the same model (warm).
+6. train — a synthetic KITTI tree (16 train, 24 val frames) trained by the
+   port's `cli.train.main`: complex_yolov4 @608, bf16, batch 4,
+   `--subdivisions 2` (4 micro-batches, 2 optimizer steps), TrainConfig's
+   other defaults (Adam, cosine LR, hflip 0.5, device raster from points),
+   one epoch with its validation in f32 and one checkpoint, the launch
+   counts set to 0 just before: training launches no kernel, validation
+   the 3x3 kernel's f32 instance as `model.routes(608)` of the f32 model
+   predicts. Then the checkpoint is served by `cli.evaluate.main` with its
+   default f32 compute (the weights checked equal to the trained module's,
+   the launches as predicted, the decoded heads of 2 frames within 1e-3 of
+   the all-plain f32 path, and f32 eval frames/s of a warm pass over 3 batches
+   of 8, the first left out), and again with `--quantize int8` in f32
+   compute (calibrated in f32; the int8 convs write f32, or int8 where
+   chained, 68 int8 launches per batch). Then, on the trained state: 12
+   steps on one fixed batch (the loss finite and lower after them than
+   before), and train images/s over 3 windows of 8 synced steps (each
+   window printed), the device's busy share of 3 profiled steps
+   (torch.profiler), a forward / loss / backward / optimizer split
+   (synced stages of 3 further steps) and the peak memory.
+
+Each phase prints its wall time on a `[time]` line.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record (launches: the sum over the six served runs of
-phases 4 and 5), and the line before that nvidia-smi's name and power
-limit.
+the per-kernel JSON record (launches: the sum over the served and
+evaluated runs of phases 4 to 6, the f32 instance's over phase 6's f32
+runs), and the line before that nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -105,6 +137,10 @@ CONV3X3_LAYERS = (("L1", 608, 32, 64, 2), ("L6", 304, 32, 64, 1),
 # per-column max |diff| relative to the column's scale, and abs on conf/cls
 DECODED_REL_TOL = 2e-2
 PROB_ABS_TOL = 1e-2
+# the same in f32 (both paths round the 3x3 layers' x and w to bf16 alike,
+# only the f32 summation order differs; an H100 reads about 1e-6): per
+# column relative and conf/cls absolute
+F32_HEADS_TOL = 1e-3
 MODEL = "complex_yolov4"
 # kernel launches per request. Path 1: layer 0 -> stem, layers 1, 6, 11,
 # 16, 19 -> conv3x3. Path 2: layer 0 -> stem, layers 1, 11 -> conv3x3,
@@ -123,6 +159,16 @@ FUSED_CASES = (("complex_yolov4", (2, 10), 304, 8), ("complex_yolov4", (12, 23),
                ("complex_yolov4_tiny", (2, 8), 152, 8), ("complex_yolov3", (2, 4), 304, 8),
                ("complex_yolov3", (6, 11), 152, 8), ("complex_yolov4", (12, 23), 76, 2))
 KERNEL_NAMES = ("stem_conv3x3", "conv3x3_fused", "fused_stage", "int8_conv")
+# the f32 instance of the 3x3 kernel and the int8 conv's f32 output: their
+# own rows in the kernels line; their launches are the 3x3 and int8
+# wrappers' counts in the f32 runs (phase 6)
+F32_ROW = "conv3x3_fused_f32"
+INT8_F32_ROW = "int8_conv_f32"
+F32_REL_TOL = 1e-4
+# phase 6: train / val frames, batch, micro-batches per optimizer step; the
+# throughput's timed windows and steps per window, and its profiled steps
+TRAIN_FRAMES, TRAIN_VAL_FRAMES, TRAIN_BATCH, TRAIN_SUBDIV = 16, 24, 4, 2
+TRAIN_WINDOWS, TRAIN_WINDOW_STEPS, PROFILED_STEPS = 3, 8, 3
 # phase 5: (label, extra CLI flags, FUSED_STAGE) of the evaluated configurations
 EVAL_FRAMES = 16
 EVAL_CONF = 0.45
@@ -131,10 +177,14 @@ EVAL_CONFIGS = (("points", (), False), ("cells", ("--cells_raster",), False),
                 ("int8", ("--quantize", "int8", "--calib_batches", "1"), True))
 SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
+           F32_ROW: "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
+           INT8_F32_ROW: "complex_yolov4_tpu_torch/csrc/int8_conv.cu",
            "fused_stage": "complex_yolov4_tpu_torch/csrc/fused_stage.cu",
            "int8_conv": "complex_yolov4_tpu_torch/csrc/int8_conv.cu"}
 REPLACES = {"stem_conv3x3": "complex_yolov4_tpu/ops/stem_conv.py:112",
             "conv3x3_fused": "complex_yolov4_tpu/ops/pallas_conv.py:92",
+            F32_ROW: "complex_yolov4_tpu/ops/pallas_conv.py:92",
+            INT8_F32_ROW: "complex_yolov4_tpu/models/network.py:456",
             "fused_stage": "complex_yolov4_tpu/ops/fused_stage.py:495",
             "int8_conv": "complex_yolov4_tpu/models/network.py:456"}
 
@@ -238,20 +288,22 @@ def timed_pair(kernel_fn, plain_fn, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def library_conv_ms(x_nhwc, w_packed, bias, stride, reps: int) -> float:
+def library_conv_ms(x_nhwc, w_packed, bias, stride, reps: int, dtype=None) -> float:
     """ms of one cuDNN `F.conv2d` computing the same conv (bias, no
     activation) on the channels_last view of the kernel's input: the
-    yardstick of `library_ms`, which the port never calls. An f32 input (the
-    stem's raster) is cast to bf16 first, outside the timing. cuDNN's
-    autotuner is on for this timing only."""
+    yardstick of `library_ms`, which the port never calls. The conv runs in
+    `dtype` (default bf16: an f32 input, the stem's raster, is cast to bf16
+    first, outside the timing; f32 for the f32 instance, TF32 off as set in
+    phase 1). cuDNN's autotuner is on for this timing only."""
     import torch.nn.functional as F
 
     c_in, c_out = x_nhwc.shape[-1], w_packed.shape[1]
-    x = x_nhwc.to(torch.bfloat16).permute(0, 3, 1, 2)
+    dtype = dtype or torch.bfloat16
+    x = x_nhwc.to(dtype).permute(0, 3, 1, 2)
     # channels_last like x, so that no call converts it inside the timing
-    w = (w_packed.reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    w = (w_packed.reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1).to(dtype)
          .contiguous(memory_format=torch.channels_last))
-    b = bias.to(torch.bfloat16)
+    b = bias.to(dtype)
     saved = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     try:
@@ -316,28 +368,49 @@ def phase_kernels(dev):
                                                                 activation="mish"),
                       lambda x, w, b, s: conv_mod.conv3x3_plain(x, w, b, stride=s,
                                                                 activation="mish"), 10))
+    # the f32 instance: an f32 x (an f32 network's activation), f32 out
+    for name, hw, c_in, c_out, stride in CONV3X3_LAYERS:
+        x, w, b = operands(hw, c_in, c_out, torch.float32)
+        x = x * 4.0 - 2.0  # signed, as an activation
+        cases.append((f"conv3x3 f32 {name}", F32_ROW, x, w, b, stride,
+                      lambda x, w, b, s: conv_mod.conv3x3_fused(x, w, b, stride=s,
+                                                                activation="mish"),
+                      lambda x, w, b, s: conv_mod.conv3x3_plain(x, w, b, stride=s,
+                                                                activation="mish"), 10))
     del x, w, b
 
-    records = {"stem_conv3x3": new_record(), "conv3x3_fused": new_record()}
+    records = {"stem_conv3x3": new_record(), "conv3x3_fused": new_record(),
+               F32_ROW: new_record()}
     failed = []
     for name, key, x, w, b, stride, kernel, plain, reps in cases:
         k_out = kernel(x, w, b, stride)
         torch.cuda.synchronize()
         p_out = plain(x, w, b, stride)
         torch.cuda.synchronize()
-        abs_err, ulps = bf16_ulp_error(k_out, p_out)
-        ok = (k_out.shape == p_out.shape and k_out.dtype == torch.bfloat16
-              and bool(torch.isfinite(k_out.float()).all()) and ulps <= 1.0)
+        f32 = key == F32_ROW
+        if f32:  # same bf16 rounding of x and w on both sides: only the sum order differs
+            abs_err = float((k_out - p_out).abs().max())
+            rel = abs_err / float(p_out.abs().max())
+            ok = (k_out.shape == p_out.shape and k_out.dtype == torch.float32
+                  and bool(torch.isfinite(k_out).all()) and rel <= F32_REL_TOL)
+            err_text = f"max_abs_err={abs_err:.6g} rel_err={rel:.3g} (tol {F32_REL_TOL})"
+        else:
+            abs_err, ulps = bf16_ulp_error(k_out, p_out)
+            ok = (k_out.shape == p_out.shape and k_out.dtype == torch.bfloat16
+                  and bool(torch.isfinite(k_out.float()).all()) and ulps <= 1.0)
+            err_text = f"max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f}"
         del k_out, p_out
         k_ms, p_ms = timed_pair(lambda: kernel(x, w, b, stride), lambda: plain(x, w, b, stride),
                                 reps)
-        lib_ms = library_conv_ms(x, w, b, stride, reps)
+        lib_ms = library_conv_ms(x, w, b, stride, reps, torch.float32 if f32 else None)
         bsz, h, wd, c_in = x.shape
         c_out = w.shape[1]
-        moved, ops = conv_work(bsz, h, wd, c_in, c_out, 3, stride, x.element_size(), 2, 2)
+        out_bytes = 4 if f32 else 2
+        moved, ops = conv_work(bsz, h, wd, c_in, c_out, 3, stride, x.element_size(),
+                               out_bytes, 2)
         bnd, by = add_bound(records[key], moved, ops, "bf16")
         print(f"[kernels] {name} x{tuple(x.shape)} -> {c_out} s{stride}: "
-              f"max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} kernel_ms={k_ms:.4f} "
+              f"{err_text} kernel_ms={k_ms:.4f} "
               f"bound_ms={bnd:.4f} ({by}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
               f"library_ms={lib_ms:.4f} plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -348,10 +421,12 @@ def phase_kernels(dev):
         r["plain_ms"] += p_ms
         r["library_ms"] += lib_ms
     print("[kernels] library_ms: one cuDNN F.conv2d (bf16, channels_last, bias, "
-          "cudnn.benchmark on) for the same conv; it leaves out the activation, which "
-          "favours the library. A yardstick only: the port never calls it.")
+          "cudnn.benchmark on; f32 with TF32 off for the f32 instance) for the same conv; "
+          "it leaves out the activation, which favours the library. A yardstick only: the "
+          "port never calls it. The f32 instance's bound counts its products at the bf16 "
+          "tensor-core peak (it rounds x and w to bf16) and its f32 input and output bytes.")
     if failed:
-        raise AssertionError(f"kernel vs plain disagree beyond 1 bf16 ulp: {failed}")
+        raise AssertionError(f"kernel vs plain disagree beyond their bound: {failed}")
     return records
 
 
@@ -431,11 +506,12 @@ def phase_fused(dev):
     return rec
 
 
-def int8_shapes():
-    """{(k, stride, C_in, C_out, H_in, input dtype): count} over complex_yolov4's
-    quantized convs at 608 (`default_skip`); the input is "int8" where the
-    producer is a chained conv (`quantize.chain_set`), else "bf16", which
-    the kernel quantizes as it loads it."""
+def _int8_layers():
+    """(key, output chained) per quantized conv of complex_yolov4 at 608
+    (`default_skip`): key = (k, stride, C_in, C_out, H_in, input dtype),
+    the input "int8" where the producer is a chained conv
+    (`quantize.chain_set`), else "bf16", which the kernel quantizes as it
+    loads it; the output is chained (int8) where the conv itself is."""
     from complex_yolov4_tpu_torch.models import quantize as qz
     from complex_yolov4_tpu_torch.models import zoo
     from complex_yolov4_tpu_torch.models.spec import ConvSpec
@@ -447,13 +523,28 @@ def int8_shapes():
     quant = [i for i, layer in enumerate(spec.layers)
              if isinstance(layer, ConvSpec) and i not in skip]
     chain = qz.chain_set(spec, [f"layer{i}" for i in quant])
-    shapes = {}
     for i in quant:
         layer = spec.layers[i]
-        key = (layer.size, layer.stride, chans[i], layer.filters, 608 // strides[i - 1],
-               "int8" if i - 1 in chain else "bf16")
+        yield ((layer.size, layer.stride, chans[i], layer.filters, 608 // strides[i - 1],
+                "int8" if i - 1 in chain else "bf16"), i in chain)
+
+
+def int8_shapes():
+    """{(k, stride, C_in, C_out, H_in, input dtype): count} over complex_yolov4's
+    quantized convs at 608 (`_int8_layers`)."""
+    shapes = {}
+    for key, _ in _int8_layers():
         shapes[key] = shapes.get(key, 0) + 1
     return shapes
+
+
+def int8_chained_out():
+    """{shape key of `int8_shapes`: how many of its convs write int8 for a
+    chained consumer}; the others write the compute dtype."""
+    chained = {}
+    for key, out_int8 in _int8_layers():
+        chained[key] = chained.get(key, 0) + int(out_int8)
+    return chained
 
 
 def library_int_mm_ms(x, w, reps: int) -> float:
@@ -472,19 +563,26 @@ def phase_int8(dev):
     producer, else bf16 quantized in the kernel), in the int32, bf16 and
     int8 output modes; ms per request is the bf16-mode time summed over the
     68 layers. library_ms covers the 1x1 layers only (`library_int_mm_ms`):
-    no PyTorch call computes an int8 3x3 conv on CUDA."""
+    no PyTorch call computes an int8 3x3 conv on CUDA. Also the f32 output
+    mode (f32 compute), checked on the same inputs; its own record,
+    returned second, times the int8 conv as f32 compute runs it: every
+    input int8 (the network quantizes an f32 activation before the call),
+    the chained convs writing int8 for their consumer, the others f32."""
     from complex_yolov4_tpu_torch.ops import int8_conv as i8
 
-    shapes = int8_shapes()
+    shapes, chained = int8_shapes(), int8_chained_out()
     assert sum(shapes.values()) == 68, shapes
     rng = np.random.default_rng(SEED)
     rec = new_record()
     rec.update(library_ms=None, library_layers=0, ms_on_library_layers=0.0, device_ms=0.0,
                library_device_ms=0.0, device_ms_on_library_layers=0.0)
+    rec_f32 = new_record()
+    rec_f32.update(library_ms=None, device_ms=0.0)
     failed = []
     s_x = np.float32(3.0 / 127.0)
     inv_s_x = float(np.float32(1.0) / s_x)
-    for (k, stride, c_in, c_out, hw, src), count in sorted(shapes.items()):
+    for key, count in sorted(shapes.items()):
+        k, stride, c_in, c_out, hw, src = key
         x8 = torch.from_numpy(rng.integers(-127, 128, (BATCH, hw, hw, c_in))
                               .astype(np.int8)).to(dev)
         # a bf16 input: N(0, 1), a few values past the clip at +-3
@@ -501,20 +599,42 @@ def phase_int8(dev):
         g32 = i8.int8_conv(x, w, scale, b, out="int32", **kw)
         gbf = i8.int8_conv(x, w, scale, b, **kw)
         gi8 = i8.int8_conv(x, w, scale, b, out="int8", inv_s_next=inv_next, **kw)
+        gf32 = i8.int8_conv(x, w, scale, b, out="f32", **kw)
         torch.cuda.synchronize()
         p32 = i8.int8_conv_plain(x, w, scale, b, out="int32", **kw)
         pbf = i8.epilogue(p32, scale, b, s_x=kw["s_x"], activation="mish", out="bf16")
         pi8 = i8.epilogue(p32, scale, b, s_x=kw["s_x"], activation="mish", out="int8",
                           inv_s_next=inv_next)
+        pf32 = i8.epilogue(p32, scale, b, s_x=kw["s_x"], activation="mish", out="f32")
         torch.cuda.synchronize()
         eq32 = torch.equal(g32, p32)
         abs_err, ulps = bf16_ulp_error(gbf, pbf)
         d8 = int((gi8.int() - pi8.int()).abs().max())
+        f32_rel = float((gf32 - pf32).abs().max() / pf32.abs().max())
+        rec_f32["max_abs_err"] = max(rec_f32["max_abs_err"], float((gf32 - pf32).abs().max()))
         k_ms, p_ms = timed_pair(lambda: i8.int8_conv(x, w, scale, b, **kw),
                                 lambda: i8.int8_conv_plain(x, w, scale, b, **kw), 5)
         dev_ms = device_ms(lambda: i8.int8_conv(x, w, scale, b, **kw))
         rec["device_ms"] += dev_ms * count
-        ok = eq32 and ulps <= 1.0 and d8 <= 1 and bool(torch.isfinite(gbf.float()).all())
+        # f32 compute: int8 x; out="int8" on the chained convs, "f32" on the rest
+        f_text = []
+        for n, out_kw in ((count - chained[key], {"out": "f32"}),
+                          (chained[key], {"out": "int8", "inv_s_next": inv_next})):
+            if n == 0:
+                continue
+            f_ms, fp_ms = timed_pair(lambda: i8.int8_conv(x8, w, scale, b, **out_kw, **kw),
+                                     lambda: i8.int8_conv_plain(x8, w, scale, b, **out_kw, **kw),
+                                     5)
+            f_dev = device_ms(lambda: i8.int8_conv(x8, w, scale, b, **out_kw, **kw))
+            moved_f, ops_f = conv_work(BATCH, hw, hw, c_in, c_out, k, stride, 1,
+                                       4 if out_kw["out"] == "f32" else 1, 1)
+            add_bound(rec_f32, moved_f + 4 * c_out, ops_f, "int8", n)
+            rec_f32["ms"] += f_ms * n
+            rec_f32["plain_ms"] += fp_ms * n
+            rec_f32["device_ms"] += f_dev * n
+            f_text.append(f"{out_kw['out']} out x{n} {f_ms:.4f}, device {f_dev:.4f}")
+        ok = (eq32 and ulps <= 1.0 and d8 <= 1 and bool(torch.isfinite(gbf.float()).all())
+              and gf32.dtype == torch.float32 and f32_rel <= 1e-5)
         # bf16-output mode, as timed: int8 or bf16 x, int8 w, f32 scale, bf16 out
         moved, ops = conv_work(BATCH, hw, hw, c_in, c_out, k, stride, x.element_size(), 2, 1)
         bnd, by = add_bound(rec, moved + 4 * c_out, ops, "int8", count)
@@ -531,7 +651,9 @@ def phase_int8(dev):
             rec["device_ms_on_library_layers"] += dev_ms * count
         print(f"[kernels] int8_conv k{k} s{stride} {c_in}->{c_out} @{hw} {src} in x{count}: "
               f"int32_equal={eq32} bf16 max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} "
-              f"int8 max_diff={d8} kernel_ms={k_ms:.4f} (device {dev_ms:.4f}) library_ms={lib} "
+              f"int8 max_diff={d8} f32 rel_err={f32_rel:.3g} (tol 1e-5) "
+              f"kernel_ms={k_ms:.4f} (device {dev_ms:.4f}; f32 compute from int8 x: "
+              f"{'; '.join(f_text)}) library_ms={lib} "
               f"bound_ms={bnd:.4f} ({by}) TOP/s={ops / dev_ms / 1e9:.1f} plain_ms={p_ms:.4f} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -539,7 +661,7 @@ def phase_int8(dev):
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
         rec["ms"] += k_ms * count
         rec["plain_ms"] += p_ms * count
-        del x, x8, w, g32, gbf, gi8, p32, pbf, pi8
+        del x, x8, w, g32, gbf, gi8, gf32, p32, pbf, pi8, pf32
     print(f"[kernels] int8_conv library_ms: one torch._int_mm (cuBLAS int8 -> int32) per "
           f"1x1 conv, summed over those {rec['library_layers']} of the 68 layers: "
           f"{rec['library_ms']:.4f} ms against the kernel's {rec['ms_on_library_layers']:.4f} "
@@ -551,9 +673,16 @@ def phase_int8(dev):
           f"calls it.")
     print(f"[kernels] int8_conv 68 layers: {rec['ms']:.4f} ms per request (target 2.0); "
           f"device time {rec['device_ms']:.4f} ms")
+    # the library call computes the same int32 sums whatever the output mode
+    rec_f32["library_ms"] = rec["library_ms"]
+    print(f"[kernels] int8_conv in f32 compute, 68 layers from int8 inputs "
+          f"({sum(chained.values())} chained convs writing int8, the others f32): "
+          f"{rec_f32['ms']:.4f} ms per request, device time {rec_f32['device_ms']:.4f} ms, "
+          f"bound {rec_f32['bound_ms']:.4f} ms (f32 outputs written by the threads, no TMA "
+          f"store)")
     if failed:
         raise AssertionError(f"int8 kernel vs plain disagree: {failed}")
-    return rec
+    return rec, rec_f32
 
 
 def make_scenes(r: int):
@@ -752,8 +881,9 @@ def phase_split(label, model, dev):
 def expected_launches(model, batches: int, calib_batches: int):
     """Kernel launches of an evaluation run, from the routes: per batch, one
     per routed stem, 3x3 and int8 layer and one per fused segment, and per
-    int8 calibration batch those of the bf16 network (no int8, no fused
-    segments) that calibrates: the stem and the 3x3 kernel."""
+    int8 calibration batch those of the network (no int8, no fused
+    segments) that calibrates in the model's compute dtype: in bf16 the
+    stem and the 3x3 kernel, in f32 the 3x3 kernel."""
     from complex_yolov4_tpu_torch.models.network import kernel_routes
 
     def count(routes):
@@ -766,7 +896,7 @@ def expected_launches(model, batches: int, calib_batches: int):
         return n
 
     per_batch = count(model.routes(608))
-    calib = count(kernel_routes(model.spec, 608))
+    calib = count(kernel_routes(model.spec, 608, model.compute_dtype))
     total = {k: per_batch[k] * batches + calib[k] * calib_batches for k in KERNEL_NAMES}
     return per_batch, total
 
@@ -842,7 +972,8 @@ def check_oracle(root, dev):
         raise AssertionError("oracle detections do not give AP 1.0")
 
 
-def check_heads(label, model, batch, dev, frames: int = 2):
+def check_heads(label, model, batch, dev, frames: int = 2, rel_tol: float = DECODED_REL_TOL,
+                prob_tol: float = PROB_ABS_TOL):
     """Decoded heads of the kernel path vs the all-plain path, on the first
     `frames` frames of one batch."""
     with torch.inference_mode():
@@ -856,9 +987,9 @@ def check_heads(label, model, batch, dev, frames: int = 2):
     rel = float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max())
     prob = float(diff[6:].max())
     print(f"[eval] {label} decoded {tuple(got.shape)} kernel vs plain path: max rel err per "
-          f"column={rel:.3g} (tol {DECODED_REL_TOL}), max abs err conf/cls={prob:.3g} "
-          f"(tol {PROB_ABS_TOL})")
-    if rel > DECODED_REL_TOL or prob > PROB_ABS_TOL:
+          f"column={rel:.3g} (tol {rel_tol}), max abs err conf/cls={prob:.3g} "
+          f"(tol {prob_tol})")
+    if rel > rel_tol or prob > prob_tol:
         raise AssertionError(f"{label}: kernel path and plain path disagree")
 
 
@@ -976,13 +1107,260 @@ def phase_evaluate(dev):
     return launches
 
 
+def fixed_batch_descent(state, batch):
+    """12 Adam steps (LR 1e-3) of the trained state on one fixed batch: the
+    losses, which must be finite and end lower than they start."""
+    from complex_yolov4_tpu_torch import train as T
+
+    step = T.make_train_step()
+    losses = [float(step(state, batch, 1e-3, 0, False)["loss"]) for _ in range(12)]
+    print(f"[train] 12 Adam steps (LR 1e-3) on one fixed batch of {TRAIN_BATCH}: loss "
+          + " ".join(f"{v:.4g}" for v in losses))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"loss not finite or not falling on a fixed batch: {losses}")
+
+
+def train_throughput(state, batch, dev):
+    """Train images/s at 608, bf16, batch 4, on a warm state: TRAIN_WINDOWS
+    windows of TRAIN_WINDOW_STEPS steps, each synced and timed on the host
+    clock; then the device's busy share of PROFILED_STEPS steps
+    (torch.profiler, CUDA activity only: the kernels' summed device time
+    over the steps' wall time); then 3 steps split into synced stages
+    (raster, forward, loss, backward, optimizer); and the peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from complex_yolov4_tpu_torch import train as T
+    from complex_yolov4_tpu_torch.losses.yolo_loss import network_loss
+    from complex_yolov4_tpu_torch.train.trainer import batch_images
+
+    step = T.make_train_step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, batch, 1e-4, 0, False)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_WINDOW_STEPS):
+            step(state, batch, 1e-4, 0, False)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / TRAIN_WINDOW_STEPS)
+    step_s = float(np.mean(windows))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(state, batch, 1e-4, 0, False)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    model, opt = state.model, state.optimizer
+    split = {k: [] for k in ("raster", "forward", "loss", "backward", "optimizer")}
+    for _ in range(3):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        images = batch_images(batch, dev)
+        targets = torch.as_tensor(batch["targets"], device=dev)
+        tmask = torch.as_tensor(batch["target_mask"], device=dev)
+        mark()
+        heads = model(images)
+        mark()
+        loss, _ = network_loss(model.spec, heads, targets, tmask, want_metrics=False)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        mark()
+        for k, a, b in zip(split, marks[:-1], marks[1:]):
+            split[k].append((b - a) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    spread = (max(windows) - min(windows)) / min(windows)
+    print(f"[train] {MODEL} @608 bf16 batch {TRAIN_BATCH}: {step_s * 1e3:.2f} ms/step over "
+          f"{TRAIN_WINDOWS} windows of {TRAIN_WINDOW_STEPS} synced steps after the descent's "
+          f"warm-up, train images/s={TRAIN_BATCH / step_s:.2f}; per window ms/step "
+          + " ".join(f"{w * 1e3:.2f}" for w in windows)
+          + f" (spread {spread * 100:.1f}%); peak memory {peak:.2f} GiB")
+    if busy > 0:
+        busy_step = busy / PROFILED_STEPS
+        print(f"[train] device busy share: {busy_step:.2f} ms of kernels a step "
+              f"({PROFILED_STEPS} profiled steps) = {busy_step / (step_s * 1e3):.3f} of the "
+              f"timed windows' {step_s * 1e3:.2f} ms step; {busy / prof_wall:.3f} of the "
+              f"profiled steps' own {prof_wall / PROFILED_STEPS:.2f} ms (the tracing slows "
+              f"the host)")
+    else:
+        print("[train] device busy share: not measured (the profiler saw no device time)")
+    print("[train] split of 3 steps, synced stages, ms: " + "; ".join(
+        f"{k} {np.mean(v):.2f}" for k, v in split.items()))
+
+
+def warm_rate(t, frames_per_batch):
+    """Eval frames/s over the batches after the first (its loader wait and
+    first calls left out): frames over the summed loader wait, inference
+    and matching seconds of those batches."""
+    rest = [sum(x) for x in zip(t["load"][1:], t["infer"][1:], t["match"][1:])]
+    return frames_per_batch * len(rest) / sum(rest)
+
+
+def phase_train(dev):
+    """Phase 6: `cli.train.main` on a synthetic tree, then its checkpoint in
+    `cli.evaluate.main` (f32, and int8 in f32 compute), a fixed-batch
+    descent and the train throughput on the trained state. Returns {label:
+    launches} of its f32 runs."""
+    import os
+    import tempfile
+
+    from complex_yolov4_tpu_torch.cli import evaluate, train
+    from complex_yolov4_tpu_torch.data import loader as ld
+    from complex_yolov4_tpu_torch.data import synthetic
+    from complex_yolov4_tpu_torch.models import zoo
+    from complex_yolov4_tpu_torch.models.network import kernel_routes
+
+    fns = counters()
+    launches = {}
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] phase 6 {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = synthetic.generate_kitti_dataset(
+            os.path.join(tmp, "kitti"), num_train=TRAIN_FRAMES, num_val=TRAIN_VAL_FRAMES,
+            num_test=0, seed=1)
+        spec_routes = kernel_routes(zoo.get_model_spec(MODEL), 608, torch.float32)
+        per_val_batch = sum(1 for r in spec_routes.values() if r == "conv3x3")
+        val_batches = -(-TRAIN_VAL_FRAMES // TRAIN_BATCH)
+        argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(TRAIN_BATCH),
+                "--subdivisions", str(TRAIN_SUBDIV), "--num_epochs", "1",
+                "--working_dir", os.path.join(tmp, "wd"), "--print_freq", "1",
+                "--checkpoint_freq", "1", "--conf_thresh", str(EVAL_CONF)]
+        lap("synthetic tree")
+        for fn in fns.values():
+            fn.launches = 0
+        timings = {}
+        t0 = time.perf_counter()
+        state = train.main(argv, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in fns.items()}
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want["conv3x3_fused"] = per_val_batch * val_batches
+        n_steps = len(timings["step"])
+        print(f"[train] cli.train: {MODEL} @608 bf16 batch {TRAIN_BATCH}, subdivisions "
+              f"{TRAIN_SUBDIV}: {n_steps} micro-batches, {state.global_step // TRAIN_SUBDIV} "
+              f"optimizer steps, step ms (host, first pays first-use costs) "
+              + " ".join(f"{x * 1e3:.1f}" for x in timings["step"])
+              + f"; f32 validation mAP={timings['mAP'][0]:.4f} in {timings['val'][0]:.2f} s; "
+              f"whole run {wall:.1f} s; launches {got} (validation: {per_val_batch} f32 3x3 "
+              f"launches per batch from the f32 routes {spec_routes}, {val_batches} batches)")
+        if (n_steps != TRAIN_FRAMES // TRAIN_BATCH or state.global_step != n_steps
+                or got != want):
+            raise AssertionError(f"train run: {n_steps} steps, launches {got} != {want}")
+        launches["train (f32 validation)"] = got
+        ckpt = os.path.join(tmp, "wd", "checkpoints", "complexer_yolo", "epoch_1.ckpt")
+        lap("cli.train")
+
+        # the checkpoint in cli.evaluate, with its default f32 compute
+        eval_argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
+                     "--conf_thresh", str(EVAL_CONF), "--pretrained_path", ckpt]
+        for fn in fns.values():
+            fn.launches = 0
+        cold = {}
+        out, model = evaluate.main(eval_argv, timings=cold)
+        got = {k: fn.launches for k, fn in fns.items()}
+        n_batches = len(cold["infer"])
+        per_batch, want = expected_launches(model, n_batches, 0)
+        print(f"[train] checkpoint in cli.evaluate (f32, {TRAIN_VAL_FRAMES} frames, batch "
+              f"{BATCH}): mAP={float(out['mAP']):.4f} launches {got}, per batch from "
+              f"model.routes(608) {per_batch}; device_ms/batch "
+              + " ".join(f"{x * 1e3:.2f}" for x in cold["infer"])
+              + f"; eval frames/s (cold, every batch)={TRAIN_VAL_FRAMES / cold['total'][0]:.2f}")
+        if (got != want or model.compute_dtype != torch.float32 or per_batch["stem_conv3x3"]
+                or n_batches != TRAIN_VAL_FRAMES // BATCH):
+            raise AssertionError(f"f32 eval of the checkpoint: {got} != {want}")
+        ref = state.model.to_serving(dev, torch.float32)
+        for name, buf in ref.named_buffers():
+            if not torch.equal(buf, getattr(model, name)):
+                raise AssertionError(f"checkpoint weights differ from the trained model: {name}")
+        del ref
+        launches["eval f32 checkpoint"] = got
+        first, _ = eval_loader(root, ())
+        check_heads("f32 checkpoint", model, next(iter(first)), dev, rel_tol=F32_HEADS_TOL,
+                    prob_tol=F32_HEADS_TOL)
+        warm = warm_pass(model, root, eval_argv, ())
+        print(f"[train] f32 eval warm pass: device_ms/batch "
+              + " ".join(f"{x * 1e3:.2f}" for x in warm["infer"])
+              + " match_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["match"])
+              + " wait_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["load"])
+              + f"; eval frames/s over batches 2-{len(warm['infer'])} "
+              f"({TRAIN_VAL_FRAMES - BATCH} frames, the first batch left out)="
+              f"{warm_rate(warm, BATCH):.2f}")
+        del model
+        lap("f32 eval of the checkpoint")
+
+        # the checkpoint served int8 in f32 compute (calibrated in f32, the
+        # int8 convs writing f32)
+        for fn in fns.values():
+            fn.launches = 0
+        cold_i8 = {}
+        out_i8, model_i8 = evaluate.main(eval_argv + ["--quantize", "int8", "--calib_batches",
+                                                      "1"], timings=cold_i8)
+        got = {k: fn.launches for k, fn in fns.items()}
+        per_batch, want = expected_launches(model_i8, len(cold_i8["infer"]), 1)
+        print(f"[train] checkpoint in cli.evaluate --quantize int8 (f32 compute): "
+              f"mAP={float(out_i8['mAP']):.4f} launches {got}, per batch from "
+              f"model.routes(608) {per_batch} plus the f32 calibration batch; device_ms/batch "
+              + " ".join(f"{x * 1e3:.2f}" for x in cold_i8["infer"])
+              + f"; eval frames/s (cold, every batch)="
+              f"{TRAIN_VAL_FRAMES / cold_i8['total'][0]:.2f}")
+        if (got != want or per_batch["int8_conv"] != 68
+                or {kw.get("out") for kw in model_i8._int8_kw.values()} != {"f32", "int8"}):
+            raise AssertionError(f"int8 f32 eval of the checkpoint: {got} != {want}")
+        launches["eval int8 f32 checkpoint"] = got
+        del model_i8
+        lap("int8 f32 eval of the checkpoint")
+
+        loader = ld.create_train_loader(root, TRAIN_BATCH, device_raster=True)
+        loader.set_epoch(1)
+        batch = next(iter(loader))
+        torch.cuda.empty_cache()
+        fixed_batch_descent(state, batch)
+        lap("fixed-batch descent")
+        train_throughput(state, batch, dev)
+        del state
+        torch.cuda.empty_cache()
+        lap("train throughput")
+    return launches
+
+
 def main() -> None:
+    t_start = clock = time.perf_counter()
+
+    def lap(what):
+        nonlocal clock
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - clock:.1f} s")
+        clock = now
+
     name, count, smi = phase_device()
     dev = torch.device("cuda", 0)
+    # the first torch.optim optimizer (phase 6) imports torch._dynamo, seconds
+    # of host time: import it while nvcc builds
+    dynamo = threading.Thread(target=importlib.import_module, args=("torch._dynamo",),
+                              daemon=True)
+    dynamo.start()
     phase_build()
+    dynamo.join()
+    lap("phases 1-2 (device, build)")
     records = phase_kernels(dev)
     records["fused_stage"] = phase_fused(dev)
-    records["int8_conv"] = phase_int8(dev)
+    records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
+    lap("phase 3 (kernels)")
     spec, path1, path2 = build_models(dev)
     l1, _ = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
     layerwise_segments(path1, dev)
@@ -992,14 +1370,22 @@ def main() -> None:
         phase_split("path2", path2, dev)
     del path1, path2
     torch.cuda.empty_cache()
+    lap("phase 4 (slice)")
     runs = {"serve path 1": l1, "serve path 2": l2, **{
         f"eval {k}": v for k, v in phase_evaluate(dev).items()}}
+    lap("phase 5 (evaluate)")
+    f32_runs = phase_train(dev)
+    lap("phase 6 (train)")
+    print(f"[time] phases 1-6: {time.perf_counter() - t_start:.1f} s")
     kernels = []
-    for k in KERNEL_NAMES:
+    f32_of = {F32_ROW: "conv3x3_fused", INT8_F32_ROW: "int8_conv"}
+    for k in KERNEL_NAMES + tuple(f32_of):
         r = records[k]
+        launches = (sum(run[f32_of[k]] for run in f32_runs.values()) if k in f32_of
+                    else sum(run[k] for run in runs.values()))
         row = {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-            "launches": sum(run[k] for run in runs.values()),
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if 2 * r["bytes_bound_ms"] >= r["bound_ms"] else "operations",
@@ -1009,10 +1395,12 @@ def main() -> None:
                        ms_on_library_layers=r["ms_on_library_layers"])
         kernels.append(row)
     print("[kernels] launches per run: " + "; ".join(
-        f"{name} {run}" for name, run in runs.items()))
-    print("[kernels] launches: the six runs together; ms, plain_ms, bound_ms and "
+        f"{name} {run}" for name, run in {**runs, **f32_runs}.items()))
+    print("[kernels] launches: the bf16 runs of phases 4 and 5 together, and for "
+          f"{F32_ROW} and {INT8_F32_ROW} the f32 runs of phase 6; ms, plain_ms, bound_ms and "
           "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
-          "takes (3x3: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and 12-23; int8: "
+          "takes (3x3 in bf16 and f32: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and "
+          "12-23; int8: "
           "the 68 quantized convs, but library_ms over its library_layers 1x1 convs only, "
           "on which the kernel takes ms_on_library_layers); bound_by: what bounds the layers "
           "holding most of bound_ms")

@@ -37,16 +37,22 @@ def resolve_spec(config) -> NetSpec:
 
 
 def load_weights(spec: NetSpec, path: str) -> Tuple[dict, dict]:
-    """Dispatch on checkpoint flavor: darknet `.weights` or torch `.pth` /
-    `.pt` -> numpy (params, state) trees."""
+    """Dispatch on checkpoint flavor: darknet `.weights`, torch `.pth` /
+    `.pt` or the port's train checkpoint `.ckpt` -> numpy (params, state)
+    trees."""
     if path.endswith(".weights"):
         return wio.load_darknet_weights(spec, path)
+    if path.endswith(".ckpt"):
+        from ..train.checkpoint import restore_params_and_bn
+
+        return restore_params_and_bn(path)
     if path.endswith((".pth", ".pt")):
         return wio.load_torch_state_dict(spec, path)
     if os.path.isdir(path):
         raise ValueError(
             f"{path!r} is a checkpoint directory (orbax): the port does not read "
-            "orbax checkpoints yet; pass a darknet .weights or a torch .pth file")
+            "orbax checkpoints yet; pass a darknet .weights, a torch .pth or a "
+            "train checkpoint .ckpt file")
     raise ValueError(f"unrecognized checkpoint format: {path!r}")
 
 
@@ -95,7 +101,8 @@ def maybe_quantize(spec: NetSpec, params, state, config, loader,
                    device: torch.device) -> Darknet:
     """The serving `Darknet` on `device`, BN folded. With --quantize int8:
     calibrate on the first `config.calib_batches` image batches of `loader`
-    and quantize by `default_skip` (models/quantize.py). FUSED_STAGE=1 runs
+    and quantize by `default_skip` (models/quantize.py), calibrating in the
+    compute dtype as the JAX package does. FUSED_STAGE=1 runs
     the CSP stages on the fused-stage kernel in bf16, as the JAX package's
     `network._use_fused_default` does."""
     dtype = compute_dtype_of(config)
@@ -105,17 +112,13 @@ def maybe_quantize(spec: NetSpec, params, state, config, loader,
     if getattr(config, "quantize", "none") != "int8":
         return Darknet(spec, state_t, compute_dtype=dtype, device=device,
                        fused_stages=fused)
-    if dtype != torch.bfloat16:
-        raise ValueError(
-            "--quantize int8 serves with --compute_dtype bfloat16 only: the port's "
-            "int8 kernel writes bf16 or int8 and has no f32 output yet")
     calib = []
     # (the loader's prefetch thread shuts itself down when the loop breaks)
     for i, batch in enumerate(loader):
         if i >= max(int(config.calib_batches), 1):
             break
         calib.append(np.asarray(batch["image"]))
-    tree = qz.quantize_model(spec, folded, calib, device=device)
+    tree = qz.quantize_model(spec, folded, calib, device=device, compute_dtype=dtype)
     print(f"PTQ int8: {len(tree)} of {len(folded)} convs quantized "
           f"({len(calib)} calibration batches)")
     return Darknet(spec, state_t, compute_dtype=dtype, device=device,

@@ -10,7 +10,8 @@
 // load to (9*C_in, C_out) bf16 rows in (ky, kx, ci) order, bias f32. Both
 // kernels compute y = act(conv3x3_pad1(x, w) + b) with symmetric 1-px zero
 // padding (stride 2 reads input rows 2i-1..2i+1, as F.conv2d(padding=1)),
-// bf16 products, f32 accumulation, f32 bias and activation, bf16 output.
+// bf16 products, f32 accumulation, f32 bias and activation, bf16 output
+// (f32 in and out for cyv4_conv3x3_f32).
 //
 // Both kernels share one design: a persistent grid (SMs x resident blocks)
 // in which each warp (stem) or warpgroup (3x3) walks its own output tiles
@@ -80,6 +81,17 @@
 //   instead. Six instances are built: the four TMA ones of the main path
 //   (C_in 32 and 64 at stride 1 and 2) and the two cp.async ones of C_in
 //   128, which take the stride at run time.
+//   The f32 contract (cyv4_conv3x3_f32, pallas_conv.py with an f32 x): x
+//   is f32, rounded to bf16 on its way into the window (pallas_conv.py:140),
+//   and the output is f32. An f32 window would be twice the bytes, which
+//   neither the TMA boxes (their swizzle spans a bf16 pixel) nor two rings
+//   beside the weights leave room for, so the group's threads read the f32
+//   pixels with 16-byte loads, round them in registers and store the bf16
+//   chunks where the TMA or cp.async copy would have put them: the window,
+//   the ring, the weights and the products are those of the bf16 kernel,
+//   and only the loads (synchronous, hidden by the other warpgroup and
+//   block) and the 8-byte f32 stores differ. Three instances, the stride
+//   at run time: wgmma for C_in 32 and 64, mma.sync for C_in 128.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -285,6 +297,24 @@ __device__ __forceinline__ void store_slice(const float (&acc)[4][4], int half, 
 #pragma unroll
   for (int nj = 0; nj < 4; ++nj)
     if (ok && 8 * nj < c_left) dst[4 * nj] = v[nj];
+}
+
+// The same slice stored as f32 (the f32 instances): lane q writes channels
+// 8nj + 2q, 2q + 1 as one 8-byte word.
+__device__ __forceinline__ void store_slice(const float (&acc)[4][4], int half, int act,
+                                            float* px, int q, int c_left, bool ok) {
+  float2* dst = reinterpret_cast<float2*>(px) + q;
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj)
+    if (ok && 8 * nj < c_left)
+      dst[4 * nj] = make_float2(apply_act(acc[nj][2 * half], act),
+                                apply_act(acc[nj][2 * half + 1], act));
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 int sm_count() {
@@ -585,6 +615,8 @@ constexpr int MBAR_BYTES = 64;     // one 8-byte mbarrier per window slot, at mo
 enum Load {
   LOAD_CP16 = 1,  // 16-byte cp.async copies by the group's threads
   LOAD_TMA = 2,   // C_in 32 or 64: one TMA box per stride phase
+  LOAD_F32 = 3,   // an f32 x: the group's threads read it, round it to bf16
+                  // and store it in the bf16 window's layout
 };
 
 // A block's warps form groups that each walk their own tiles with their own
@@ -651,6 +683,43 @@ __device__ __forceinline__ void conv_load_window(const __nv_bfloat16* __restrict
   }
 }
 
+// The same window from an f32 x (the f32 instances): each thread reads the
+// 8 floats of a 16-byte bf16 chunk with two 16-byte loads, rounds them to
+// bf16 (round to nearest even, as the plain version's cast) and stores the
+// chunk where conv_load_window would put it, so the window in shared memory
+// is bf16 before any A fragment is read from it and the products, the ring
+// and shared memory are those of the bf16 instances. The stride is g.S.
+template <int NT>
+__device__ __forceinline__ void conv_load_window_f32(const float* __restrict__ x,
+                                                     const ConvGeom& g, int t, uint32_t dst_s,
+                                                     int gtid) {
+  const int s = g.S;
+  const int tx = t % g.tiles_x, rest = t / g.tiles_x;
+  const int ty = rest % g.tiles_y, n = rest / g.tiles_y;
+  const int iy0 = ty * CONV_TH * s - 1, ix0 = tx * CONV_TW * s - 1;
+  const float* xn = x + (size_t)n * g.H * g.W * g.C_in;
+  const int total = (g.win_h * g.win_w) << g.nch_log2;
+  for (int e = gtid; e < total; e += NT) {
+    const int pix = e >> g.nch_log2, ch = e & (g.nch - 1);
+    const int r = __float2int_rz(((float)pix + 0.5f) * g.inv_win_w);
+    const int c = pix - r * g.win_w;
+    const int gy = iy0 + r, gx = ix0 + c;
+    const bool ok = (unsigned)gy < (unsigned)g.H && (unsigned)gx < (unsigned)g.W;
+    const int p = r * g.cols + (c >> (s - 1));
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ok) {
+      const float4* src =
+          reinterpret_cast<const float4*>(xn + ((size_t)gy * g.W + gx) * g.C_in + ch * 8);
+      const float4 a = __ldg(src), b = __ldg(src + 1);
+      v = make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
+                     pack_bf16x2(b.z, b.w));
+    }
+    st_shared_v4(dst_s + (c & (s - 1)) * g.blk_bytes +
+                     ((p * g.nch + (ch ^ ((p >> g.swz_shift) & g.swz_mask))) << 4),
+                 v);
+  }
+}
+
 // Ask for tile t's window by TMA (one thread): one box per stride phase,
 // the tensor map's out-of-bounds zeros being the 1-px padding and its
 // swizzle the one the ldmatrix addresses undo.
@@ -681,13 +750,15 @@ constexpr int conv_min_blocks(int S, int KC) { return KC == 8 || (KC == 4 && S =
 // pixels (A: each warp's row, ldmatrix from the window) by the 64-channel
 // weight slice (B: read from shared memory by the tensor cores). KC == 0:
 // mma.sync; each warp takes one row and 32 channels. S: the stride, or 0
-// to take it from g.S (cp.async windows only).
-template <int S, int LOAD, int KC>
+// to take it from g.S (cp.async and f32 windows only). T: the type of x
+// and out, bf16 or (LOAD_F32) float.
+template <int S, int LOAD, int KC, typename T>
 __global__ void __launch_bounds__(CONV_THREADS, conv_min_blocks(S, KC))
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, ConvGeom g,
+conv3x3_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+               const float* __restrict__ bias, T* __restrict__ out, ConvGeom g,
                int act, const __grid_constant__ CUtensorMap x_map) {
-  static_assert(S > 0 || LOAD == LOAD_CP16, "TMA boxes need the stride at compile time");
+  static_assert(S > 0 || LOAD != LOAD_TMA, "TMA boxes need the stride at compile time");
+  static_assert((LOAD == LOAD_F32) == (sizeof(T) == 4), "f32 x and out go with LOAD_F32");
   constexpr bool WG = KC > 0;
   constexpr int GROUPS = WG ? 2 : 1;
   constexpr int NT = CONV_THREADS / GROUPS;  // threads per group
@@ -753,7 +824,12 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
       if (gtid == 0 && tile < g.n_spatial)
         conv_tma_window<S>(&x_map, g, tile, w_s + off, bars + 8 * slot);
     } else {
-      if (tile < g.n_spatial) conv_load_window<S, NT>(x, g, tile, w_s + off, gtid);
+      if (tile < g.n_spatial) {
+        if constexpr (LOAD == LOAD_F32)
+          conv_load_window_f32<NT>(x, g, tile, w_s + off, gtid);
+        else
+          conv_load_window<S, NT>(x, g, tile, w_s + off, gtid);
+      }
       cp_async_commit();
     }
   };
@@ -855,7 +931,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int ox = tx * CONV_TW + gq + 8 * half;
-          __nv_bfloat16* px = out + (((size_t)n * g.Ho + oy) * g.Wo + ox) * g.C_out + c0;
+          T* px = out + (((size_t)n * g.Ho + oy) * g.Wo + ox) * g.C_out + c0;
           store_slice(acc[h], half, act, px, q, g.C_out - c0, ox < g.Wo);
         }
       }
@@ -926,23 +1002,25 @@ cudaError_t conv_tensor_map(CUtensorMap* map, const __nv_bfloat16* x, const Conv
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int S, int LOAD, int KC>
-cudaError_t launch_conv(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
-                        __nv_bfloat16* out, const ConvGeom& g, int act, cudaStream_t stream) {
+template <int S, int LOAD, int KC, typename T = __nv_bfloat16>
+cudaError_t launch_conv(const T* x, const __nv_bfloat16* w, const float* bias, T* out,
+                        const ConvGeom& g, int act, cudaStream_t stream) {
   constexpr int groups = KC > 0 ? 2 : 1;
   const size_t smem = conv_smem_bytes(g, groups, g.stages);
   CUtensorMap map{};
-  cudaError_t e = LOAD == LOAD_TMA ? conv_tensor_map(&map, x, g) : cudaSuccess;
+  cudaError_t e = cudaSuccess;
+  if constexpr (LOAD == LOAD_TMA) e = conv_tensor_map(&map, x, g);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(conv3x3_kernel<S, LOAD, KC>,
+  e = cudaFuncSetAttribute(conv3x3_kernel<S, LOAD, KC, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   unsigned grid = 0;
-  e = persistent_grid(conv3x3_kernel<S, LOAD, KC>, CONV_THREADS, smem,
+  e = persistent_grid(conv3x3_kernel<S, LOAD, KC, T>, CONV_THREADS, smem,
                       (long long)(g.n_spatial + groups - 1) / groups * g.n_ctiles, g.n_ctiles,
                       &grid);
   if (e != cudaSuccess) return e;
-  conv3x3_kernel<S, LOAD, KC><<<grid, CONV_THREADS, smem, stream>>>(x, w, bias, out, g, act, map);
+  conv3x3_kernel<S, LOAD, KC, T><<<grid, CONV_THREADS, smem, stream>>>(x, w, bias, out, g, act,
+                                                                       map);
   return cudaGetLastError();
 }
 
@@ -960,6 +1038,17 @@ cudaError_t launch_conv_for(const __nv_bfloat16* x, const __nv_bfloat16* w, cons
                       : launch_conv<1, LOAD_TMA, 4>(x, w, bias, out, g, act, stream);
   return g.cp == 32 ? launch_conv<2, LOAD_TMA, 2>(x, w, bias, out, g, act, stream)
                     : launch_conv<2, LOAD_TMA, 4>(x, w, bias, out, g, act, stream);
+}
+
+// The f32 instances, with the stride taken at run time: wgmma for C_in 32
+// and 64 (the main path), mma.sync for C_in 128 (off it), so that three
+// instances cover every shape.
+cudaError_t launch_conv_f32(const float* x, const __nv_bfloat16* w, const float* bias,
+                            float* out, const ConvGeom& g, bool wgmma, int act,
+                            cudaStream_t stream) {
+  if (!wgmma || g.cp == 128) return launch_conv<0, LOAD_F32, 0>(x, w, bias, out, g, act, stream);
+  return g.cp == 32 ? launch_conv<0, LOAD_F32, 2>(x, w, bias, out, g, act, stream)
+                    : launch_conv<0, LOAD_F32, 4>(x, w, bias, out, g, act, stream);
 }
 
 }  // namespace
@@ -1003,6 +1092,23 @@ int cyv4_conv3x3(const void* x, const void* w, const void* bias, void* out, int 
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)launch_conv_for(xp, wp, bp, op, g, wg, act, s);
+}
+
+// The f32 contract of the same conv: x (B, H, W, C_in) f32 NHWC, rounded
+// to bf16 as it is loaded; w and bias as above; out (B, H/stride,
+// W/stride, C_out) f32 (the bias and activation in f32, not rounded).
+int cyv4_conv3x3_f32(const void* x, const void* w, const void* bias, void* out, int B,
+                     int H, int W, int C_in, int C_out, int stride, int act, void* stream) {
+  if ((stride != 1 && stride != 2) || (C_in != 32 && C_in != 64 && C_in != 128) ||
+      C_out % 8 != 0 || C_out < 8)
+    return (int)cudaErrorInvalidValue;
+  ConvGeom g;
+  bool wg = false;
+  if (!conv_geometry(g, wg, B, H, W, C_in, C_out, stride)) return (int)cudaErrorInvalidValue;
+  if (g.n_spatial < 1) return (int)cudaSuccess;
+  return (int)launch_conv_f32(static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w),
+                              static_cast<const float*>(bias), static_cast<float*>(out), g, wg,
+                              act, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -18,7 +18,10 @@
 //   mode 0: bf16(h);
 //   mode 1: int8 clip(rint(h * inv_s_next), -127, 127) (round half to
 //           even), the chained requantization to the consumer's domain;
-//   mode 2: the raw int32 sum y (for checks).
+//   mode 2: the raw int32 sum y (for checks);
+//   mode 3: h itself, f32 (f32 compute: network.py:496 casts the epilogue
+//           to the f32 compute dtype), stored by the threads from the
+//           accumulators as the int32 sums are.
 // h = y * scale + b is rounded as the plain version's separate ops are
 // (__fmul_rn / __fadd_rn keep nvcc from contracting it into an FMA); the
 // activation uses the fast exp and divide.
@@ -72,7 +75,7 @@ constexpr int WG_COLS = 128;     // x 128 channels
 constexpr int STAGE_OUT = WG_ROWS * WG_COLS * 2;  // its bf16 output tile
 constexpr int EPI_BYTES = 2 * WG_COLS * 4;        // its channels' w_scale and bias
 enum Act { ACT_LINEAR = 0, ACT_MISH = 1, ACT_LEAKY = 2, ACT_RELU = 3 };
-enum Mode { OUT_BF16 = 0, OUT_INT8 = 1, OUT_INT32 = 2 };
+enum Mode { OUT_BF16 = 0, OUT_INT8 = 1, OUT_INT32 = 2, OUT_F32 = 3 };
 // How A reaches shared memory (A_BF16_WIDE: A_BF16 with the wide tile).
 enum ALoad { A_IM2COL = 0, A_BF16 = 1, A_TMA = 2, A_BF16_WIDE = 3 };
 
@@ -473,7 +476,8 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
     // (+ 8) of the warpgroup's 64 and channel pairs 8j + 2 (l % 4) of the
     // tile. bf16 and int8 outputs go through the warpgroup's output tile in
     // shared memory (128-byte swizzle) and leave by TMA stores, which clip
-    // the tile at M and C_out; int32 sums are stored from the registers.
+    // the tile at M and C_out; int32 sums and f32 outputs are stored from
+    // the registers.
     // The previous tile's epilogue has read the scales (its last wg_sync),
     // so they are overwritten here and read after the next barrier.
     const int q = lane & 3, r_lo = warp * 16 + (lane >> 2);
@@ -497,7 +501,9 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
               const float sc0 = __fmul_rn(g.s_x, sc_p[nl]), sc1 = __fmul_rn(g.s_x, sc_p[nl + 1]);
               const float h0 = act_f32(__fadd_rn(__fmul_rn((float)y0, sc0), bi_p[nl]), g.act);
               const float h1 = act_f32(__fadd_rn(__fmul_rn((float)y1, sc1), bi_p[nl + 1]), g.act);
-              if (g.mode == OUT_INT8) {
+              if (g.mode == OUT_F32) {
+                *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(h0, h1);
+              } else if (g.mode == OUT_INT8) {
                 const int q0 = (int)fminf(fmaxf(rintf(__fmul_rn(h0, g.inv_s_next)), -127.0f), 127.0f);
                 const int q1 = (int)fminf(fmaxf(rintf(__fmul_rn(h1, g.inv_s_next)), -127.0f), 127.0f);
                 *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(out) + o) =
@@ -547,12 +553,13 @@ bool kmajor_map(CUtensorMap* map, const void* p, long long rows, int cols, int b
 
 // The tensor map of the (M, C_out) output for the epilogue's TMA stores:
 // boxes of 64 rows x 128 bytes (64 bf16 or 128 int8 channels) in the
-// 128-byte swizzle. False for int32 sums, and where the row is not a
+// 128-byte swizzle. False for int32 sums and f32 outputs, and where the row is not a
 // multiple of 16 bytes, which then leave by the threads' own stores.
 bool out_map(CUtensorMap* map, void* p, int mode, long long rows, int cols) {
   const EncodeTiledFn encode = encode_tiled();
   const int elem = mode == OUT_BF16 ? 2 : 1;
-  if (encode == nullptr || mode == OUT_INT32 || (cols * elem) % 16) return false;
+  if (encode == nullptr || mode == OUT_INT32 || mode == OUT_F32 || (cols * elem) % 16)
+    return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), 64};
@@ -677,8 +684,8 @@ cudaError_t launch(const void* x, const void* w, Geom g, const float* w_scale, c
 // the host's cost counts on each of path 2's 68 layers.
 // x (B, H, W, C_in) NHWC, int8 (x_bf16 == 0) or bf16 (x_bf16 == 1, then
 // quantized with inv_s_x); w (C_out, k*k*C_in) int8; w_scale, bias (C_out,)
-// f32; out (B, Ho, Wo, C_out) bf16 (mode 0), int8 (mode 1) or int32 (mode
-// 2). C_in % 16 == 0 (% 128 for an int8 x of a 3x3 or strided conv),
+// f32; out (B, Ho, Wo, C_out) bf16 (mode 0), int8 (mode 1), int32 (mode
+// 2) or f32 (mode 3). C_in % 16 == 0 (% 128 for an int8 x of a 3x3 or strided conv),
 // C_out % 8 == 0; x and w 16-byte aligned. The kernel runs on `device`
 // (x's), whichever device is current; the current one is restored.
 struct Int8ConvArgs {
@@ -705,7 +712,7 @@ int run(const Int8ConvArgs* a) {
   const int B = a->B, H = a->H, W = a->W, C_in = a->C_in, C_out = a->C_out;
   const int ksize = a->ksize, stride = a->stride, mode = a->mode, dev = a->device;
   if (C_in % 16 || C_out % 8 || (ksize != 1 && ksize != 3) || (stride != 1 && stride != 2) ||
-      mode < 0 || mode > 2)
+      mode < 0 || mode > 3)
     return (int)cudaErrorInvalidValue;
   Geom g;
   g.H = H, g.W = W, g.C_in = C_in, g.C_out = C_out, g.ksize = ksize, g.stride = stride;

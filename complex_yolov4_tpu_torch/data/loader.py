@@ -1,24 +1,31 @@
-"""Validation batches: seeded order, three layouts, a prefetch thread.
+"""Train and validation batches: seeded order, three layouts, a prefetch
+thread.
 
-Counterpart of `BatchIterator` and `create_val_loader` of
-`complex_yolov4_tpu/data/loader.py` (reference:
-src/data_process/kitti_dataloader.py:50-61) for evaluation:
+Counterpart of `BatchIterator`, `create_train_loader` and
+`create_val_loader` of `complex_yolov4_tpu/data/loader.py` (reference:
+src/data_process/kitti_dataloader.py:22-61):
 
-- a seeded per-epoch order (`shuffle`, `seed`, `set_epoch`);
-  `drop_last=False` keeps the tail batch;
+- a seeded per-epoch order (`shuffle`, `seed`, `set_epoch`); each sample's
+  augmentations draw from `default_rng((seed, epoch, index, slot))`, so a
+  batch is the JAX loader's for the same seed and epoch;
 - fixed-shape numpy batches in one of three layouts: host-rastered images
-  (`image`), deferred padded points for the device points raster
-  (`points`, `point_mask`, `flip`, `holes`, `hole_mask`, `size`), or flat
-  COO cells for the device COO raster (`cells`, `cell_keys`, `cell_dens`,
-  `batch`, `batch_cap`); each with `targets` (B, T, 7), `target_mask`
-  (B, T) and `sample_ids`;
+  (`image`), deferred padded points and the recorded flip and cutout
+  decisions for the device points raster (`points`, `point_mask`, `flip`,
+  `holes`, `hole_mask`, `size`), or flat COO cells for the device COO
+  raster (`cells`, `cell_keys`, `cell_dens`, `batch`, `batch_cap`; val
+  only); each with `targets` (B, T, 7), `target_mask` (B, T) and
+  `sample_ids`;
+- multiscale training: a new size from {S-96 .. S+96 step 32} every 10
+  batches, seeded per epoch (reference: kitti_dataset.py:216-235); the
+  device raster resizes, a host-rastered image is resized here by
+  `resize_linear` (cv2's INTER_LINEAR sampling, in numpy: the port needs no
+  cv2);
 - frames of a batch load on a thread pool that the iteration owns, and a
-  background thread assembles the next batches while the consumer works.
+  background thread assembles the next batches while the consumer works;
+  its end-of-data mark waits for room like a batch.
 
-Val frames are never resized or augmented, so the port needs no cv2; the
-multiscale resize, the augmentations, the per-host shards and the batched
-COO layout (for a data mesh) wait for the training and data-parallel
-slices.
+The per-host shards and the batched COO layout (for a data mesh) wait for
+the data-parallel slice; mosaic for the native rasterizer.
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from . import bev as bev_mod
-from .dataset import KittiDataset
+from .dataset import KittiDataset, _ProbeUnsupported
+from .transforms import default_aug_transforms, default_lidar_transforms
+
+_MULTISCALE_EVERY = 10  # batches between size redraws (reference parity)
 
 # Static point padding for the device points raster: boundary-cropped KITTI /
 # synthetic clouds stay under this.
@@ -43,8 +53,25 @@ MAX_POINTS = 20480
 MAX_CELLS = 16384
 
 
+def resize_linear(img: np.ndarray, size: int) -> np.ndarray:
+    """(H, W, C) f32 -> (size, size, C): bilinear with half-pixel centres
+    and edge clamping, the sampling of cv2.resize(INTER_LINEAR) on f32
+    images (the JAX loader's multiscale resize)."""
+    def taps(n_in: int):
+        src = np.maximum((np.arange(size) + 0.5) * (n_in / size) - 0.5, 0.0)
+        i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        return i0, i1, (src - i0).astype(np.float32)
+
+    y0, y1, fy = taps(img.shape[0])
+    x0, x1, fx = taps(img.shape[1])
+    rows = img[y0] * (1.0 - fy)[:, None, None] + img[y1] * fy[:, None, None]
+    out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
+    return out.astype(np.float32)
+
+
 class BatchIterator:
-    """Deterministic epoch iterator over fixed-shape val batches."""
+    """Deterministic epoch iterator over fixed-shape batches."""
 
     def __init__(
         self,
@@ -52,9 +79,11 @@ class BatchIterator:
         batch_size: int,
         shuffle: bool = False,
         drop_last: bool = False,
+        multiscale: bool = False,
         seed: int = 2020,
         prefetch: int = 2,
         device_raster: bool = False,
+        max_holes: int = 1,
         cells_raster: bool = False,
         cell_capacity: Optional[int] = None,
     ):
@@ -62,6 +91,9 @@ class BatchIterator:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.multiscale = multiscale
+        # cutout holes a deferred batch carries per frame
+        self.max_holes = max_holes
         # device_raster: compact padded points instead of images (the
         # `from_points` program rasters on the device); cells_raster on top
         # of it: host-aggregated COO cells (the `from_cells` program)
@@ -75,8 +107,12 @@ class BatchIterator:
         self.workers = min(8, os.cpu_count() or 4)
         self.epoch = 0
         self._warned_truncate = False
+        self._warned_holes = False
+        self._warned_fallback = False
         self._warned_cell_truncate = False
         self._dropped_cells = 0
+        base = dataset.img_size
+        self.size_choices = list(range(base - 3 * 32, base + 3 * 32 + 1, 32))
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -91,14 +127,27 @@ class BatchIterator:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _map(self, pool: Optional[ThreadPoolExecutor], fn, indices):
-        """[fn(int(index)) for index in indices], on the pool when there is one."""
+        """[fn(int(index), slot) for slot, index in enumerate(indices)], on
+        the pool when there is one."""
         if pool is not None and len(indices) > 1:
-            return list(pool.map(lambda i: fn(int(i)), indices))
-        return [fn(int(i)) for i in indices]
+            return list(pool.map(lambda ji: fn(int(ji[1]), ji[0]), enumerate(indices)))
+        return [fn(int(i), j) for j, i in enumerate(indices)]
 
-    def _load_one_deferred(self, index: int):
-        """Device-raster sample: (points, pmask, targets, mask)."""
-        _, lidar, targets, mask = self.dataset.load_sample(index, defer_raster=True)
+    def _rng(self, index: int, j: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self.epoch, int(index), j))
+
+    def _load_one(self, index: int, j: int, size: int):
+        _, img, targets, mask = self.dataset.get_item(index, self._rng(index, j))
+        if img.shape[0] != size:
+            img = resize_linear(img, size)
+        return img, targets, mask
+
+    def _load_one_deferred(self, index: int, j: int):
+        """Device-raster sample: (points, pmask, flip, holes, hole_mask,
+        targets, mask), from the same random draws as `_load_one` (the
+        transforms run; only the pixel work is left to the device)."""
+        _, (probe, lidar), targets, mask = self.dataset.load_sample(
+            index, self._rng(index, j), defer_raster=True)
         cropped = bev_mod.remove_points_outside(lidar)
         if cropped.shape[0] > MAX_POINTS and not self._warned_truncate:
             self._warned_truncate = True
@@ -108,22 +157,45 @@ class BatchIterator:
                 " dense frames will differ from the host raster",
                 stacklevel=2)
         pts, pmask = bev_mod.pad_points(cropped, MAX_POINTS)
-        return pts, pmask, targets, mask
+        if len(probe.holes) > self.max_holes and not self._warned_holes:
+            self._warned_holes = True
+            warnings.warn(
+                f"device-raster path dropping {len(probe.holes) - self.max_holes}"
+                f" cutout hole(s) beyond max_holes={self.max_holes}; pass"
+                " max_holes >= cutout n_holes to BatchIterator", stacklevel=2)
+        holes = np.zeros((self.max_holes, 5), np.float32)
+        hole_mask = np.zeros((self.max_holes,), np.float32)
+        for h, hole in enumerate(probe.holes[: self.max_holes]):
+            holes[h] = hole
+            hole_mask[h] = 1.0
+        return (pts, pmask, np.float32(probe.flipped), holes, hole_mask, targets, mask)
 
-    def _make_batch_deferred(self, indices: np.ndarray, pool) -> Dict[str, np.ndarray]:
-        cols = list(zip(*self._map(pool, self._load_one_deferred, indices)))
-        b = len(indices)
+    def _make_batch_deferred(self, indices: np.ndarray, pool, size: int):
+        """A deferred batch; None when an image-space transform does what
+        the probe cannot record (the caller then rasters on the host)."""
+        try:
+            results = self._map(pool, self._load_one_deferred, indices)
+        except (_ProbeUnsupported, TypeError, AttributeError, NotImplementedError) as e:
+            # the JAX loader's catch set: a custom transform's array op on
+            # the probe raises a plain TypeError or AttributeError. Warned
+            # (once), so that a fault of the deferred path does not pass unseen.
+            if not self._warned_fallback:
+                self._warned_fallback = True
+                warnings.warn(f"deferred batch unavailable ({type(e).__name__}: {e}); such "
+                              "batches are rastered on the host", stacklevel=2)
+            return None
+        cols = list(zip(*results))
         return {
             "points": np.stack(cols[0]),
             "point_mask": np.stack(cols[1]),
-            "flip": np.zeros((b,), np.float32),
-            "holes": np.zeros((b, 1, 5), np.float32),   # val: no cutout
-            "hole_mask": np.zeros((b, 1), np.float32),
-            "targets": np.stack(cols[2]).astype(np.float32),
-            "target_mask": np.stack(cols[3]).astype(np.float32),
+            "flip": np.asarray(cols[2], np.float32),
+            "holes": np.stack(cols[3]),
+            "hole_mask": np.stack(cols[4]),
+            "targets": np.stack(cols[5]).astype(np.float32),
+            "target_mask": np.stack(cols[6]).astype(np.float32),
             "sample_ids": np.asarray(
                 [self.dataset.sample_id_list[int(i)] for i in indices], np.int64),
-            "size": int(self.dataset.img_size),
+            "size": int(size),
         }
 
     def _cells_per_frame_cap(self) -> int:
@@ -150,8 +222,9 @@ class BatchIterator:
         packed flat at the loader's full batch size and a fixed capacity, so
         a tail batch serves like a full one (its pad frames raster empty and
         the caller slices them off)."""
-        def load_one(index):
-            _, lidar, targets, mask = self.dataset.load_sample(index, defer_raster=True)
+        def load_one(index, j):
+            _, (_, lidar), targets, mask = self.dataset.load_sample(
+                index, self._rng(index, j), defer_raster=True)
             c, k = bev_mod.aggregate_bev_cells(bev_mod.remove_points_outside(lidar))
             return c, k, targets, mask
 
@@ -179,23 +252,25 @@ class BatchIterator:
                 [self.dataset.sample_id_list[int(i)] for i in indices], np.int64),
         }
 
-    def _make_batch(self, indices: np.ndarray, pool) -> Dict[str, np.ndarray]:
+    def _make_batch(self, indices: np.ndarray, pool, size: int) -> Dict[str, np.ndarray]:
         if self.device_raster and not self.dataset.is_test:
             if self.cells_raster:
                 return self._make_batch_deferred_cells(indices, pool)
-            return self._make_batch_deferred(indices, pool)
-        results = self._map(pool, self.dataset.get_item, indices)
-        image = np.empty((len(results),) + results[0][1].shape, np.float32)
-        for j, (_, img, _, _) in enumerate(results):
+            batch = self._make_batch_deferred(indices, pool, size)
+            if batch is not None:
+                return batch
+        results = self._map(pool, lambda i, j: self._load_one(i, j, size), indices)
+        image = np.empty((len(results),) + results[0][0].shape, np.float32)
+        for j, (img, _, _) in enumerate(results):
             image[j] = img
         batch = {
             "image": image,
             "sample_ids": np.asarray(
                 [self.dataset.sample_id_list[int(i)] for i in indices], np.int64),
         }
-        if results[0][2] is not None:
-            batch["targets"] = np.stack([r[2] for r in results]).astype(np.float32)
-            batch["target_mask"] = np.stack([r[3] for r in results]).astype(np.float32)
+        if results[0][1] is not None:
+            batch["targets"] = np.stack([r[1] for r in results]).astype(np.float32)
+            batch["target_mask"] = np.stack([r[2] for r in results]).astype(np.float32)
         return batch
 
     def _iter_sync(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -203,10 +278,14 @@ class BatchIterator:
         pool = (ThreadPoolExecutor(max_workers=self.workers,
                                    thread_name_prefix="cyv4-torch-loader")
                 if self.workers > 1 else None)
+        size_rng = np.random.default_rng((self.seed, self.epoch, 7919))
+        size = self.dataset.img_size
         try:
             for b in range(len(self)):
+                if self.multiscale and b % _MULTISCALE_EVERY == 0:
+                    size = int(size_rng.choice(self.size_choices))
                 chunk = indices[b * self.batch_size: (b + 1) * self.batch_size]
-                yield self._make_batch(chunk, pool)
+                yield self._make_batch(chunk, pool, size)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)
@@ -295,3 +374,26 @@ def create_val_loader(dataset_dir: str, batch_size: int, *,
     return BatchIterator(ds, batch_size, shuffle=False, drop_last=False,
                          device_raster=device_raster, cells_raster=cells_raster,
                          cell_capacity=cell_capacity)
+
+
+def create_train_loader(dataset_dir: str, batch_size: int, *,
+                        num_samples: Optional[int] = None,
+                        multiscale: bool = False, mosaic: bool = False,
+                        seed: int = 2020,
+                        hflip_prob: float = 0.5, cutout_prob: float = 0.0,
+                        cutout_nholes: int = 1, cutout_ratio: float = 0.3,
+                        cutout_fill_value: float = 0.0,
+                        device_raster: bool = False) -> BatchIterator:
+    """Training pipeline with the reference augmentation recipe, shuffled per
+    epoch, the tail dropped (reference: kitti_dataloader.py:22-47); mosaic
+    raises (not ported yet)."""
+    ds = KittiDataset(
+        dataset_dir, mode="train",
+        lidar_transforms=default_lidar_transforms(),
+        aug_transforms=default_aug_transforms(
+            hflip_prob, cutout_prob, cutout_nholes, cutout_ratio, cutout_fill_value),
+        num_samples=num_samples, mosaic=mosaic,
+    )
+    return BatchIterator(ds, batch_size, shuffle=True, drop_last=True, multiscale=multiscale,
+                         seed=seed, device_raster=device_raster,
+                         max_holes=max(cutout_nholes, 1))

@@ -15,8 +15,7 @@ Activations are NCHW tensors held in `torch.channels_last` memory format,
 so `x.permute(0, 2, 3, 1)` is a free, contiguous NHWC view for the kernels,
 whose public functions keep the JAX layouts.
 
-Kernel routing (bf16 compute only), mirroring the JAX executor, in this
-order of precedence:
+Kernel routing, mirroring the JAX executor, in this order of precedence:
 - `ops.fused_stage` (``fused_stages=True``) takes each segment that
   `plan_segments` finds, on square inputs, without calibration capture, and
   only when none of its convs is quantized (`network.py:313-321`);
@@ -25,18 +24,26 @@ order of precedence:
   an int8 tensor, every other quantized conv hands the kernel its bf16
   input, which the kernel quantizes as it loads it;
 - `ops.stem_conv` takes a 3x3, stride-1, padded conv with C_in <= 14 on the
-  f32 raster (layer 0);
+  f32 raster (layer 0), in bf16 compute only: the JAX executor takes its
+  stem only then (`network.py:502-513`), so f32 runs layer 0 on cuDNN;
 - `ops.conv3x3` takes a 3x3 padded conv at stride 1 or 2 with C_in <= 128,
-  C_out <= 128 and W_out >= 128.
-At 608 that routes complex_yolov4's layer 0 to the stem kernel and layers 1,
-6, 11, 16 and 19 to the 3x3 kernel; with fused stages, layers 2-10 and 12-23
-go to two fused-stage launches and only layers 1 and 11 stay on the 3x3
+  C_out <= 128 and W_out >= 128: in bf16 on any device, in f32 on CUDA
+  only (its f32 instance takes and gives f32). The JAX executor runs its
+  Pallas conv only on an accelerator (`_use_pallas_default`), so an f32
+  model on the CPU convolves in full f32, as XLA does there.
+int8 runs in either compute dtype (its f32 output mode, `network.py:496`);
+fused stages in bf16 only. An f32 forward on CUDA runs with TF32 off
+(`no_tf32`), so that cuDNN's convs compute in f32 as XLA's do.
+At 608 that routes complex_yolov4's layer 0 to the stem kernel (bf16) and
+layers 1, 6, 11, 16 and 19 to the 3x3 kernel; with fused stages, layers
+2-10 and 12-23 go to two fused-stage launches and only layers 1 and 11 stay on the 3x3
 kernel; with int8 by `quantize.default_skip`, 68 convs go to the int8
 kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -49,14 +56,38 @@ from ..ops import fused_stage as fused_mod
 from ..ops import int8_conv as int8_mod
 from ..ops import stem_conv as stem_mod
 from ..ops.activations import act
+from .bn_train import BN_EPS, bn_train
 from .quantize import chain_set
 from .spec import ConvSpec, MaxPoolSpec, NetSpec, RouteSpec, ShortcutSpec, UpsampleSpec, YoloSpec
-from .yolo_head import decode_head
+from .yolo_head import decode_head, decode_head_raw
 
 
-def kernel_routes(spec: NetSpec, img_size: int) -> Dict[int, str]:
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for cuBLAS and cuDNN inside the block, the caller's settings
+    restored after: f32 convs and matmuls on the card then compute in f32,
+    as the JAX package's do."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def precision_scope(compute_dtype: torch.dtype, device: torch.device):
+    """`no_tf32()` for f32 compute on CUDA, else a context that does nothing."""
+    if compute_dtype == torch.float32 and torch.device(device).type == "cuda":
+        return no_tf32()
+    return contextlib.nullcontext()
+
+
+def kernel_routes(spec: NetSpec, img_size: int,
+                  compute_dtype: torch.dtype = torch.bfloat16) -> Dict[int, str]:
     """{layer index: "stem" | "conv3x3"} for the convs the kernels take on a
-    square `img_size` input (pure Python, no compute)."""
+    square `img_size` input in `compute_dtype` (pure Python, no compute);
+    f32 has no stem route."""
     chans = (spec.in_channels,) + spec.out_channels()
     strides = spec.out_strides()
     routes: Dict[int, str] = {}
@@ -65,7 +96,8 @@ def kernel_routes(spec: NetSpec, img_size: int) -> Dict[int, str]:
             continue
         size_in = img_size // (strides[i - 1] if i else 1)
         if i == 0 and stem_mod.shape_ok(chans[0], layer.filters, 3, layer.stride):
-            routes[i] = "stem"  # only layer 0 reads the f32 raster
+            if compute_dtype == torch.bfloat16:
+                routes[i] = "stem"  # only layer 0 reads the f32 raster
         elif conv3x3_mod.shape_ok(size_in, size_in, chans[i], layer.filters, 3,
                                   layer.stride):
             routes[i] = "conv3x3"
@@ -101,6 +133,25 @@ def _maxpool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(x, size, stride)
 
 
+def _other_layer(layer, h: torch.Tensor, outputs: List[Optional[torch.Tensor]],
+                 i: int) -> torch.Tensor:
+    """Maxpool, upsample, route or shortcut `i` on the running activation `h`
+    and the kept outputs of earlier layers."""
+    if isinstance(layer, MaxPoolSpec):
+        return _maxpool(h, layer.size, layer.stride)
+    if isinstance(layer, UpsampleSpec):
+        return F.interpolate(h, scale_factor=layer.stride, mode="nearest")
+    if isinstance(layer, RouteSpec):
+        if len(layer.layers) == 1:
+            src = outputs[layer.layers[0]]
+            c = src.shape[1] // layer.groups
+            return src[:, layer.group_id * c:(layer.group_id + 1) * c]
+        return torch.cat([outputs[j] for j in layer.layers], dim=1)
+    if isinstance(layer, ShortcutSpec):
+        return act(outputs[layer.from_index] + outputs[i - 1], layer.activation)
+    raise ValueError(f"unsupported layer {layer!r}")
+
+
 class Darknet(nn.Module):
     """Folded-BN inference network over a `NetSpec`.
 
@@ -108,17 +159,17 @@ class Darknet(nn.Module):
       spec: the (unfolded) layer IR; BN is already folded into `state`.
       state: ``{"layer{i}.weight": OIHW, "layer{i}.bias": (C_out,)}`` from
         `weights.from_jax_params`.
-      compute_dtype: torch.bfloat16 (kernels on) or torch.float32 (CPU only:
-        on CUDA it raises, since f32 has no kernel path yet).
+      compute_dtype: torch.bfloat16 or torch.float32 (the 3x3 kernel's f32
+        instance, cuDNN in f32 with TF32 off, the int8 kernel's f32 output).
       device: where the weights live; inputs must be on it too.
-      quant: int8 state from `weights.from_jax_quant` (bf16 only): the convs
-        it holds run on the int8 kernel.
+      quant: int8 state from `weights.from_jax_quant`: the convs it holds
+        run on the int8 kernel.
       fused_stages: run the planned CSP segments on the fused-stage kernel
         (bf16 only).
 
-    Buffers: per conv ``w{i}``/``b{i}`` in the compute dtype; in bf16 also
-    ``bk{i}``, the f32 bias, and for convs a 3x3 kernel can take ``wk{i}``,
-    the weight packed once to (9*C_in, C_out) bf16; per quantized conv
+    Buffers: per conv ``w{i}``/``b{i}`` in the compute dtype, ``bk{i}``, the
+    f32 bias, and for convs a 3x3 kernel can take ``wk{i}``, the weight
+    packed once to (9*C_in, C_out) bf16; per quantized conv
     ``wq{i}`` (C_out, k*k*C_in) int8, ``wqs{i}`` and ``bq{i}`` f32.
     """
 
@@ -130,15 +181,8 @@ class Darknet(nn.Module):
         if compute_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"compute_dtype must be bf16 or f32, got {compute_dtype}")
         bf16 = compute_dtype == torch.bfloat16
-        if (quant or fused_stages) and not bf16:
-            raise ValueError("int8 and fused stages run in bf16 compute only")
-        if torch.device(device).type == "cuda" and not bf16:
-            # f32 would route no layer to a kernel and run the whole network
-            # as plain PyTorch on the card
-            raise ValueError(
-                "f32 compute has no kernel path on CUDA: the 3x3 and stem kernels "
-                "are bf16 only; serve with compute_dtype=torch.bfloat16 (the CLI's "
-                "--compute_dtype bfloat16), or run f32 with --device cpu")
+        if fused_stages and not bf16:
+            raise ValueError("fused stages run in bf16 compute only")
         self.spec = spec
         self.compute_dtype = compute_dtype
         self.fused_stages = fused_stages
@@ -151,10 +195,9 @@ class Darknet(nn.Module):
             self.register_buffer(f"w{i}", w.to(device, compute_dtype).contiguous(
                 memory_format=torch.channels_last))
             self.register_buffer(f"b{i}", b.to(device, compute_dtype))
-            if bf16:
-                self.register_buffer(f"bk{i}", b.to(device))
-                if _kernel_capable(spec, i, layer, chans[i]):
-                    self.register_buffer(f"wk{i}", conv3x3_mod.pack_weight(w).to(device))
+            self.register_buffer(f"bk{i}", b.to(device))
+            if _kernel_capable(spec, i, layer, chans[i]):
+                self.register_buffer(f"wk{i}", conv3x3_mod.pack_weight(w).to(device))
         # int8 convs: {layer index: (s_x, float32 1/s_x)}
         self._quant: Dict[int, tuple] = {}
         for key in sorted({k.split(".")[0] for k in (quant or {})}):
@@ -174,9 +217,17 @@ class Darknet(nn.Module):
                   "activation": layer.activation, "inv_s_x": inv_s_x}
             if i in self._chain:
                 kw.update(out="int8", inv_s_next=self._quant[i + 1][1])
+            elif not bf16:
+                kw.update(out="f32")
             self._int8_kw[i] = kw
-        # liveness: the last layer that reads each output
-        self._last_use = list(range(len(spec.layers)))
+        self._last_use = self._liveness(spec)
+        self._routes: Dict[tuple, Dict[int, str]] = {}
+        self._segments: Dict[int, Dict[int, tuple]] = {}
+
+    @staticmethod
+    def _liveness(spec: NetSpec) -> List[int]:
+        """The last layer that reads each layer's output."""
+        last_use = list(range(len(spec.layers)))
         for i, layer in enumerate(spec.layers):
             srcs = []
             if isinstance(layer, RouteSpec):
@@ -186,9 +237,8 @@ class Darknet(nn.Module):
             if i > 0 and not isinstance(layer, RouteSpec):
                 srcs.append(i - 1)
             for j in srcs:
-                self._last_use[j] = max(self._last_use[j], i)
-        self._routes: Dict[tuple, Dict[int, str]] = {}
-        self._segments: Dict[int, Dict[int, tuple]] = {}
+                last_use[j] = max(last_use[j], i)
+        return last_use
 
     @property
     def device(self) -> torch.device:
@@ -213,16 +263,17 @@ class Darknet(nn.Module):
         return self._segments[img_size]
 
     def routes(self, img_size: int, fused: bool = True) -> Dict[int, str]:
-        """Kernel routes of a square `img_size` input ({} in f32 compute):
-        {layer index: "stem" | "conv3x3" | "int8" | "fused_stage s-e"}, every
-        layer of a fused segment s..e included; fused=False: as when the
-        segments are off for a call (calibration capture)."""
-        if self.compute_dtype != torch.bfloat16:
-            return {}
+        """Kernel routes of a square `img_size` input: {layer index: "stem" |
+        "conv3x3" | "int8" | "fused_stage s-e"}, every layer of a fused
+        segment s..e included (no stem in f32 compute, and no 3x3 kernel in
+        f32 off CUDA); fused=False: as when the segments are off for a call
+        (calibration capture)."""
         key = (img_size, fused)
         if key not in self._routes:
-            routes = {i: r for i, r in kernel_routes(self.spec, img_size).items()
-                      if i not in self._quant}
+            f32_host = self.compute_dtype == torch.float32 and self.device.type != "cuda"
+            routes = {} if f32_host else {
+                i: r for i, r in kernel_routes(self.spec, img_size, self.compute_dtype).items()
+                if i not in self._quant}
             routes.update({i: "int8" for i in self._quant})
             for start, (seg, _) in (self.segments(img_size) if fused else {}).items():
                 routes.update({i: f"fused_stage {start}-{seg.end}"
@@ -255,7 +306,7 @@ class Darknet(nn.Module):
                 fn = stem_mod.conv3x3_stem if kernels else stem_mod.stem_plain
                 y = fn(x, wk, bk, activation=layer.activation)
             else:
-                x = h.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+                x = h.to(cd).permute(0, 2, 3, 1).contiguous()
                 fn = conv3x3_mod.conv3x3_fused if kernels else conv3x3_mod.conv3x3_plain
                 y = fn(x, wk, bk, stride=layer.stride, activation=layer.activation)
             return y.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
@@ -275,6 +326,10 @@ class Darknet(nn.Module):
         activation of that layer instead (NCHW), for tests. capture: a dict
         that receives {layer_key: max |conv input|} (f32 scalar tensors) for
         every conv, for int8 calibration; it turns fused segments off."""
+        with precision_scope(self.compute_dtype, x.device):
+            return self._forward(x, kernels, stop_after, capture)
+
+    def _forward(self, x, kernels, stop_after, capture):
         img_size = x.shape[-1]
         segments = {}
         if capture is None and x.shape[-1] == x.shape[-2]:
@@ -302,22 +357,11 @@ class Darknet(nn.Module):
                         m = m * torch.tensor(self._quant[i][0], dtype=torch.float32)
                     capture[f"layer{i}"] = m
                 h = self._conv(i, layer, h, routes.get(i), kernels)
-            elif isinstance(layer, MaxPoolSpec):
-                h = _maxpool(h, layer.size, layer.stride)
-            elif isinstance(layer, UpsampleSpec):
-                h = F.interpolate(h, scale_factor=layer.stride, mode="nearest")
-            elif isinstance(layer, RouteSpec):
-                if len(layer.layers) == 1:
-                    src = outputs[layer.layers[0]]
-                    c = src.shape[1] // layer.groups
-                    h = src[:, layer.group_id * c:(layer.group_id + 1) * c]
-                else:
-                    h = torch.cat([outputs[j] for j in layer.layers], dim=1)
-            elif isinstance(layer, ShortcutSpec):
-                h = act(outputs[layer.from_index] + outputs[i - 1], layer.activation)
             elif isinstance(layer, YoloSpec):
                 decoded.append(decode_head(outputs[i - 1], layer, img_size))
                 h = outputs[i - 1]
+            else:
+                h = _other_layer(layer, h, outputs, i)
             if stop_after is not None and i >= stop_after:
                 return h
             outputs.append(h)
@@ -325,3 +369,119 @@ class Darknet(nn.Module):
                 if outputs[j] is not None and self._last_use[j] <= i:
                     outputs[j] = None
         return torch.cat(decoded, dim=1)
+
+
+class _ConvParams(nn.Module):
+    """One conv's trainable parameters (the JAX tree's ``layer{i}`` entry):
+    ``w`` (C_out, C_in, k, k) f32 and ``bn_scale``/``bn_bias`` or ``b``;
+    with BN, the running ``mean`` and ``var`` as buffers."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, batch_normalize: bool):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(c_out, c_in, k, k))
+        if batch_normalize:
+            self.bn_scale = nn.Parameter(torch.ones(c_out))
+            self.bn_bias = nn.Parameter(torch.zeros(c_out))
+            self.register_buffer("mean", torch.zeros(c_out))
+            self.register_buffer("var", torch.ones(c_out))
+        else:
+            self.b = nn.Parameter(torch.zeros(c_out))
+
+
+BN_MOMENTUM = 0.1  # torch convention: new = (1 - m) * old + m * batch
+
+
+class TrainDarknet(nn.Module):
+    """The trainable network over a `NetSpec`: the train branch of the JAX
+    executor (`complex_yolov4_tpu/models/network.py` `apply(train=True)`,
+    lines 560-620, without batch packing).
+
+    Per conv: the conv in `compute_dtype` (f32 accumulation; its output in
+    the compute dtype), then in bf16 the BN epilogue of `bn_train` (f32
+    batch statistics, bf16 residual) and in f32 plain batch statistics and
+    an f32 epilogue; the running statistics move by momentum 0.1 with the
+    unbiased variance; convs without BN add their bias; the single-exp mish
+    of `ops.activations`; the output cast to the compute dtype. The heads
+    are decoded in f32 (`decode_head_raw`). No hand kernel runs here, as in
+    the JAX train path (`network.py:316, 456, 504, 533`: `not train`).
+
+    Parameters are named as the JAX params tree: ``layer{i}.w`` (OIHW here,
+    HWIO there), ``layer{i}.b`` or ``layer{i}.bn_scale``/``.bn_bias``;
+    buffers ``layer{i}.mean``/``.var``. `weights.to_train_state` and
+    `weights.from_train_state` bridge the trees.
+    """
+
+    def __init__(self, spec: NetSpec, *, compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype must be bf16 or f32, got {compute_dtype}")
+        self.spec = spec
+        self.compute_dtype = compute_dtype
+        chans = (spec.in_channels,) + spec.out_channels()
+        for i, layer in enumerate(spec.layers):
+            if isinstance(layer, ConvSpec):
+                self.add_module(f"layer{i}", _ConvParams(chans[i], layer.filters, layer.size,
+                                                         layer.batch_normalize))
+        self._last_use = Darknet._liveness(spec)
+
+    def _conv(self, i: int, layer: ConvSpec, h: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        p = getattr(self, f"layer{i}")
+        pad = (layer.size - 1) // 2 if layer.pad else 0
+        h = F.conv2d(h.to(cd), p.w.to(cd), None, layer.stride, pad)
+        if layer.batch_normalize and not self.training:  # the running statistics
+            inv = torch.rsqrt(p.var + BN_EPS) * p.bn_scale
+            h = (h * inv.to(h.dtype)[None, :, None, None]
+                 + (p.bn_bias - p.mean * inv).to(h.dtype)[None, :, None, None])
+        elif layer.batch_normalize:
+            if cd == torch.bfloat16:
+                h, mean, var = bn_train(h, p.bn_scale, p.bn_bias)
+            else:
+                h = h.float()
+                mean = h.mean(dim=(0, 2, 3))
+                var = h.var(dim=(0, 2, 3), unbiased=False)
+                inv = torch.rsqrt(var + BN_EPS) * p.bn_scale
+                h = h * inv[None, :, None, None] + (p.bn_bias - mean * inv)[None, :, None, None]
+            n = h.shape[0] * h.shape[2] * h.shape[3]
+            with torch.no_grad():
+                p.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
+                p.var.mul_(1 - BN_MOMENTUM).add_(
+                    BN_MOMENTUM * var.detach() * (n / max(n - 1, 1)))
+        else:
+            h = h + p.b.to(h.dtype)[None, :, None, None]
+        return act(h, layer.activation).to(cd)
+
+    def forward(self, x: torch.Tensor) -> List[dict]:
+        """(B, C, S, S) f32 raster -> the per-head decode dicts of
+        `decode_head_raw` (what `losses.network_loss` reads). In train mode
+        BN takes the batch statistics and updates the running ones in
+        place; in eval mode (`.eval()`, the JAX `train=False`) it takes the
+        running statistics. f32 compute on CUDA needs TF32 off around the
+        forward and the backward: the train and eval steps hold that scope
+        (`precision_scope`), not the forward."""
+        img_size = x.shape[-1]
+        outputs: List[Optional[torch.Tensor]] = []
+        heads = []
+        h = x
+        for i, layer in enumerate(self.spec.layers):
+            if isinstance(layer, ConvSpec):
+                h = self._conv(i, layer, h)
+            elif isinstance(layer, YoloSpec):
+                heads.append(decode_head_raw(outputs[i - 1], layer, img_size))
+                h = outputs[i - 1]
+            else:
+                h = _other_layer(layer, h, outputs, i)
+            outputs.append(h)
+            for j in range(i + 1):
+                if outputs[j] is not None and self._last_use[j] <= i:
+                    outputs[j] = None
+        return heads
+
+    def to_serving(self, device: torch.device, compute_dtype: torch.dtype) -> "Darknet":
+        """The serving `Darknet` of the current parameters and running
+        statistics, BN folded in float64 (`weights.fold_batchnorm`)."""
+        from . import weights
+
+        params, state = weights.from_train_state(self.spec, self.state_dict())
+        return Darknet(self.spec, weights.from_jax_params(self.spec, params, state),
+                       compute_dtype=compute_dtype, device=device)

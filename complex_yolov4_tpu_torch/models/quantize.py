@@ -99,15 +99,16 @@ def quantize_weights(spec: NetSpec, folded_params: Dict,
 
 
 def calibrate(spec: NetSpec, folded_params: Dict, batches: Iterable[np.ndarray], *,
-              device: torch.device) -> Dict[str, float]:
-    """Run the bf16 network (no int8, no fused segments) over calibration
-    batches of (B, H, W, 3) f32 rasters and record the running max |conv
-    input| per conv. Returns {layer_key: max_abs}."""
+              device: torch.device, compute_dtype: torch.dtype = torch.bfloat16
+              ) -> Dict[str, float]:
+    """Run the network in `compute_dtype` (no int8, no fused segments) over
+    calibration batches of (B, H, W, 3) f32 rasters and record the running
+    max |conv input| per conv. Returns {layer_key: max_abs}."""
     from . import weights
     from .network import Darknet
 
     model = Darknet(spec, weights.from_folded(spec, folded_params),
-                    compute_dtype=torch.bfloat16, device=device)
+                    compute_dtype=compute_dtype, device=device)
     acc: Dict[str, float] = {}
     with torch.inference_mode():
         for batch in batches:
@@ -132,8 +133,10 @@ def make_quant(spec: NetSpec, folded_params: Dict, act_max: Dict[str, float], *,
 
 
 def quantize_model(spec: NetSpec, folded_params: Dict, batches: Sequence[np.ndarray], *,
-                   device: torch.device, skip: Optional[Set[int]] = None) -> Dict:
-    """One-call PTQ: calibrate + quantize. `batches` are (B, H, W, 3) BEV
-    rasters."""
-    act_max = calibrate(spec, folded_params, batches, device=device)
+                   device: torch.device, skip: Optional[Set[int]] = None,
+                   compute_dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """One-call PTQ: calibrate in `compute_dtype` + quantize. `batches` are
+    (B, H, W, 3) BEV rasters."""
+    act_max = calibrate(spec, folded_params, batches, device=device,
+                        compute_dtype=compute_dtype)
     return make_quant(spec, folded_params, act_max, skip=skip)

@@ -117,3 +117,48 @@ def init_params_np(spec: NetSpec, seed: int) -> Tuple[Dict, Dict]:
             entry["b"] = rng.uniform(-bound, bound, cout).astype(np.float32)
         params[f"layer{i}"] = entry
     return params, state
+
+
+def to_train_state(spec: NetSpec, params_np: Dict, state_np: Dict) -> Dict[str, torch.Tensor]:
+    """JAX param/state trees (numpy, BN unfolded) -> the state dict of
+    `network.TrainDarknet`: ``layer{i}.w`` OIHW f32 (from HWIO),
+    ``layer{i}.bn_scale``/``.bn_bias`` or ``layer{i}.b``, and
+    ``layer{i}.mean``/``.var``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(spec.layers):
+        key = f"layer{i}"
+        if not isinstance(layer, ConvSpec):
+            continue
+        p = params_np[key]
+        w = np.asarray(p["w"], np.float32)
+        out[f"{key}.w"] = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+        names = ("bn_scale", "bn_bias") if layer.batch_normalize else ("b",)
+        for name in names:
+            out[f"{key}.{name}"] = torch.from_numpy(np.array(p[name], np.float32))
+        if layer.batch_normalize:
+            for name in ("mean", "var"):
+                out[f"{key}.{name}"] = torch.from_numpy(np.array(state_np[key][name], np.float32))
+    return out
+
+
+def from_train_state(spec: NetSpec, sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """The inverse of `to_train_state`: a `TrainDarknet` state dict (any
+    device) -> numpy (params, state) trees in the JAX layout (HWIO)."""
+    params: Dict = {}
+    state: Dict = {}
+    for i, layer in enumerate(spec.layers):
+        key = f"layer{i}"
+        if not isinstance(layer, ConvSpec):
+            continue
+
+        def get(name):
+            return sd[f"{key}.{name}"].detach().float().cpu().numpy()
+
+        entry = {"w": np.ascontiguousarray(get("w").transpose(2, 3, 1, 0))}
+        if layer.batch_normalize:
+            entry.update(bn_scale=get("bn_scale"), bn_bias=get("bn_bias"))
+            state[key] = {"mean": get("mean"), "var": get("var")}
+        else:
+            entry["b"] = get("b")
+        params[key] = entry
+    return params, state

@@ -113,6 +113,8 @@ def load() -> ctypes.CDLL:
         lib.cyv4_stem_conv3x3.restype = i
         lib.cyv4_conv3x3.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
         lib.cyv4_conv3x3.restype = i
+        lib.cyv4_conv3x3_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        lib.cyv4_conv3x3_f32.restype = i
         lib.cyv4_fused_stage.argtypes = [vp, vp, vp, vp, vp] + [i] * 9 + [vp]
         lib.cyv4_fused_stage.restype = i
         lib.cyv4_int8_conv.argtypes = [ctypes.POINTER(Int8ConvArgs)]

@@ -1,15 +1,18 @@
 """Fused 3x3 convolution for small-channel, high-resolution layers.
 
 Counterpart of `complex_yolov4_tpu/ops/pallas_conv.py` `conv3x3_fused`:
-y = act(conv3x3_pad1(x, w) + b) at stride 1 or 2, bf16 in and out, bf16
-products with f32 accumulation, f32 bias and activation. On the early
+y = act(conv3x3_pad1(x, w) + b) at stride 1 or 2, bf16 products with f32
+accumulation, f32 bias and activation, the output in x's dtype. A bf16 x
+gives a bf16 output; an f32 x is rounded to bf16 for the products
+(`pallas_conv.py:140`) and gives an f32 output (`:161`). On the early
 backbone of complex_yolov4 at 608 it takes layers 1, 6, 11, 16 and 19.
 
 `conv3x3_fused` is the wrapper: a CUDA tensor goes to the hand-written
-Hopper kernel (`csrc/conv3x3.cu`, `cyv4_conv3x3`) or the call raises; a CPU
-tensor goes to `conv3x3_plain`, the plain PyTorch version of the same
-function (im2col by slicing, then one f32 matmul of the bf16-rounded
-operands), which the CPU tests hold against the Pallas kernel.
+Hopper kernel (`csrc/conv3x3.cu`, `cyv4_conv3x3` for bf16,
+`cyv4_conv3x3_f32` for f32) or the call raises; a CPU tensor goes to
+`conv3x3_plain`, the plain PyTorch version of the same function (im2col by
+slicing, then one f32 matmul of the bf16-rounded operands), which the CPU
+tests hold against the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def conv3x3_plain(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     """Plain PyTorch version of the kernel, on x's device."""
     patches = im2col_nhwc(x.to(torch.bfloat16).float(), stride)
     y = patches @ w_packed.float() + bias.float()
-    return act(y, activation).to(torch.bfloat16)
+    return act(y, activation).to(x.dtype)
 
 
 def pad_channels(x: torch.Tensor, w_packed: torch.Tensor, c_pad: int):
@@ -77,14 +80,15 @@ def pad_channels(x: torch.Tensor, w_packed: torch.Tensor, c_pad: int):
 
 
 def check_operands(x, w_packed, bias, stride, activation, x_dtype, envelope):
-    """Raise unless the operands are what the kernels take: dtype, shape,
+    """Raise unless the operands are what the kernels take: dtype (one of
+    the tuple `x_dtype`), shape,
     contiguity, one CPU or CUDA device, and `envelope(h, w, c_in, c_out,
     stride)`."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C_in), got {tuple(x.shape)}")
     b, h, w, c_in = x.shape
-    if x.dtype != x_dtype:
-        raise TypeError(f"x must be {x_dtype}, got {x.dtype}")
+    if x.dtype not in x_dtype:
+        raise TypeError(f"x must be one of {x_dtype}, got {x.dtype}")
     if w_packed.dtype != torch.bfloat16 or w_packed.dim() != 2 or w_packed.shape[0] != 9 * c_in:
         raise ValueError(f"w_packed must be (9*C_in={9 * c_in}, C_out) bf16, got "
                          f"{tuple(w_packed.shape)} {w_packed.dtype}")
@@ -106,15 +110,16 @@ def check_operands(x, w_packed, bias, stride, activation, x_dtype, envelope):
 
 def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
                   *, stride: int = 1, activation: str = "leaky") -> torch.Tensor:
-    """y = act(conv3x3_pad1(x, w) + bias), NHWC bf16 in/out.
+    """y = act(conv3x3_pad1(x, w) + bias), NHWC, out in x's dtype.
 
     Args:
-      x: (B, H, W, C_in) bfloat16, contiguous.
+      x: (B, H, W, C_in) bfloat16 or float32 (rounded to bf16 for the
+        products), contiguous.
       w_packed: (9*C_in, C_out) bfloat16 from `pack_weight`.
       bias: (C_out,) float32.
-    Returns (B, H/stride, W/stride, C_out) bfloat16.
+    Returns (B, H/stride, W/stride, C_out) of x's dtype.
     """
-    check_operands(x, w_packed, bias, stride, activation, torch.bfloat16,
+    check_operands(x, w_packed, bias, stride, activation, (torch.bfloat16, torch.float32),
                    lambda h, w, ci, co, s: shape_ok(h, w, ci, co, 3, s))
     if x.device.type == "cpu":
         return conv3x3_plain(x, w_packed, bias, stride=stride, activation=activation)
@@ -123,14 +128,13 @@ def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     x, w_packed = pad_channels(x, w_packed, next(c for c in (32, 64, 128) if c >= x.shape[-1]))
     b, h, w, c_in = x.shape
     c_out = w_packed.shape[1]
-    out = torch.empty((b, h // stride, w // stride, c_out), dtype=torch.bfloat16,
-                      device=x.device)
+    out = torch.empty((b, h // stride, w // stride, c_out), dtype=x.dtype, device=x.device)
     lib = _build.load()
+    entry = lib.cyv4_conv3x3 if x.dtype == torch.bfloat16 else lib.cyv4_conv3x3_f32
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.cyv4_conv3x3(x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
-                            out.data_ptr(), b, h, w, c_in, c_out, stride,
-                            ACT_CODES[activation], stream)
-    _build.check(code, "cyv4_conv3x3")
+    code = entry(x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 b, h, w, c_in, c_out, stride, ACT_CODES[activation], stream)
+    _build.check(code, "cyv4_conv3x3" if x.dtype == torch.bfloat16 else "cyv4_conv3x3_f32")
     conv3x3_fused.launches += 1
     return out
 

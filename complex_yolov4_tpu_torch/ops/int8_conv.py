@@ -9,7 +9,8 @@ original; torch has no int8 conv2d on CUDA):
     y_i32 = conv(x_q, w_i8)                   k in {1, 3}, stride 1 or 2,
                                               symmetric padding (k-1)/2
     h     = act(y * (s_x * w_scale) + b)      f32
-    out   = bf16(h), or for a chained producer
+    out   = h cast to the compute dtype: bf16(h), or h in f32 compute
+            (network.py:496), or for a chained producer
             clip(round(h * (1/s_x_next)), -127, 127) as int8 (half to even)
 
 `int8_conv` is the wrapper: a CUDA tensor goes to the hand-written Hopper
@@ -31,7 +32,7 @@ from . import _build
 from .activations import ACT_CODES, act
 from .conv3x3 import im2col_nhwc
 
-OUT_MODES = {"bf16": 0, "int8": 1, "int32": 2}
+OUT_MODES = {"bf16": 0, "int8": 1, "int32": 2, "f32": 3}
 
 
 def quantize_input(h: torch.Tensor, inv_s_x: float) -> torch.Tensor:
@@ -73,7 +74,7 @@ def epilogue(y: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor, *, s_x:
     h = act(y.float() * scale + bias, activation)
     if out == "int8":
         return torch.clamp(torch.round(h * inv_s_next), -127.0, 127.0).to(torch.int8)
-    return h.to(torch.bfloat16)
+    return h if out == "f32" else h.to(torch.bfloat16)
 
 
 def int8_conv_plain(x, w_q, w_scale, bias, *, ksize, stride, s_x, activation,
@@ -86,7 +87,8 @@ def int8_conv_plain(x, w_q, w_scale, bias, *, ksize, stride, s_x, activation,
                     inv_s_next=inv_s_next)
 
 
-_OUT_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int32": torch.int32}
+_OUT_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int32": torch.int32,
+               "f32": torch.float32}
 
 
 def _check(x, w_q, w_scale, bias, ksize, stride, activation, out, inv_s_x):
@@ -140,7 +142,8 @@ def int8_conv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
       s_x: the input's scale (a float32 value); inv_s_x: its float32
         reciprocal, for a bf16 x; inv_s_next: the float32 reciprocal of the
         consumer's s_x, for out="int8".
-      out: "bf16", "int8" (chained requantization) or "int32" (the raw sum).
+      out: "bf16", "f32" (f32 compute), "int8" (chained requantization) or
+        "int32" (the raw sum).
     Returns (B, Ho, Wo, C_out) of the out dtype.
     """
     _check(x, w_q, w_scale, bias, ksize, stride, activation, out, inv_s_x)

@@ -1,14 +1,23 @@
-"""Rotated-box IoU for NMS and eval matching, as batched tensor ops.
+"""Rotated-box IoU and GIoU for NMS, eval matching and the loss, as batched,
+differentiable tensor ops.
 
-Counterpart of the IoU half of `complex_yolov4_tpu/ops/rotated_boxes.py`
-(`box_corners`, `_corners_xy`, `_inside_convex`, `_intersection_area_xy`,
-`intersection_area`, `rotated_iou`, `pairwise_rotated_iou`). The intersection of two convex quads
+Counterpart of `complex_yolov4_tpu/ops/rotated_boxes.py` (`box_corners`,
+`_corners_xy`, `_inside_convex`, `_intersection_area_xy`, `_hull_area_xy`,
+`_hull_area_8`, `intersection_area`, `rotated_iou`, `rotated_giou`,
+`pairwise_rotated_iou`). The intersection of two convex quads
 is the convex polygon whose vertices are (a) corners of A inside B,
 (b) corners of B inside A and (c) the 16 possible edge-edge crossings: 24
 masked candidates, ordered by angle around their centroid (comparison
 ranks, so the order is that of the JAX package, ties included) and reduced
 by the masked shoelace formula. Coordinates are kept corner-major with the
 batch last, (verts, ...), as in the original.
+
+The GIoU hull is the maximal-edge formulation of the original: a directed
+edge (i, j) of the 8 corners lies on the CCW hull iff every point is
+strictly left of it or collinear within it, and the shoelace sum over the
+qualifying edges is twice the area, with no ordering step. Hull
+membership is boolean (no gradient); the area is differentiable in the
+points.
 
 Box layout: (..., 5) = [x, y, w, l, yaw], corners counter-clockwise
 (reference: src/data_process/kitti_bev_utils.py:99-119).
@@ -110,6 +119,45 @@ def _intersection_area_xy(ax, ay, bx, by):
     return 0.5 * area2.abs()
 
 
+def _hull_area_xy(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """Convex-hull area of small point sets: px, py (V, ...) -> (...).
+
+    An edge qualifies iff every point k is strictly left of it or collinear
+    and within it (only the maximal collinear edge), and neither endpoint
+    repeats an earlier point; each hull edge then appears once, CCW, and the
+    origin-based shoelace over qualifying edges is twice the area. All-
+    collinear or all-duplicate sets qualify both directions of an edge,
+    whose terms cancel to area 0."""
+    scale = px.abs().amax(0) + py.abs().amax(0) + 1.0
+    eps = _EPS * scale  # length-scaled; predicates only
+    eps2 = eps * scale
+    v = px.shape[0]
+    ddx = px[:, None] - px[None, :]  # (i, i', ...)
+    ddy = py[:, None] - py[None, :]
+    coincide = (ddx.abs() <= eps) & (ddy.abs() <= eps)
+    idx = torch.arange(v, device=px.device)
+    earlier = (idx[None, :] < idx[:, None]).reshape((v, v) + (1,) * (px.dim() - 1))
+    rep = ~torch.any(coincide & earlier, dim=1)  # (V, ...)
+
+    ex, ey = -ddx, -ddy  # (i, j, ...): p_j - p_i
+    len2 = ex * ex + ey * ey
+    rx = -ddx[:, None]  # p_k - p_i laid out (i, 1, k, ...)
+    ry = -ddy[:, None]
+    cross = rx * ey[:, :, None] - ry * ex[:, :, None]
+    t = rx * ex[:, :, None] + ry * ey[:, :, None]
+    ok = (cross > eps2) | ((cross.abs() <= eps2) & (t >= -eps2)
+                           & (t <= len2[:, :, None] + eps2))
+    edge = (torch.all(ok, dim=2) & (len2 > eps2) & rep[:, None] & rep[None, :])
+    area2 = ((px[:, None] * py[None, :] - px[None, :] * py[:, None])
+             * edge.to(px.dtype)).sum(dim=(0, 1))
+    return 0.5 * area2.abs()
+
+
+def _hull_area_8(pts: torch.Tensor) -> torch.Tensor:
+    """Convex-hull area of (8, 2) points (single set; see `_hull_area_xy`)."""
+    return _hull_area_xy(pts[:, 0], pts[:, 1])
+
+
 def intersection_area(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """Elementwise intersection area of aligned box arrays (..., 5)."""
     ax, ay = _corners_xy(boxes1)
@@ -123,6 +171,23 @@ def rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     a1 = boxes1[..., 2] * boxes1[..., 3]
     a2 = boxes2[..., 2] * boxes2[..., 3]
     return inter / torch.clamp(a1 + a2 - inter, min=_EPS)
+
+
+def rotated_giou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Elementwise rotated (GIoU, IoU) of aligned (..., 5) box arrays:
+    GIoU = IoU - (hull_area - union) / hull_area, the hull over the 8
+    corners (reference: src/utils/iou_rotated_boxes_utils.py:98-142)."""
+    inter = intersection_area(boxes1, boxes2)
+    ax, ay = _corners_xy(boxes1)
+    bx, by = _corners_xy(boxes2)
+    hull = _hull_area_xy(torch.cat([ax, bx], dim=0), torch.cat([ay, by], dim=0))
+    a1 = boxes1[..., 2] * boxes1[..., 3]
+    a2 = boxes2[..., 2] * boxes2[..., 3]
+    eps = torch.tensor(_EPS, dtype=inter.dtype, device=inter.device)
+    union = torch.maximum(a1 + a2 - inter, eps)
+    iou = inter / union
+    giou = iou - (hull - union) / torch.maximum(hull, eps)
+    return giou, iou
 
 
 def pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

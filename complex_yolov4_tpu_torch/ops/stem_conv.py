@@ -32,8 +32,9 @@ def shape_ok(c_in: int, c_out: int, size: int, stride: int) -> bool:
 
 def stem_plain(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
                *, activation: str) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on x's device."""
-    return conv3x3_plain(x, w_packed, bias, stride=1, activation=activation)
+    """Plain PyTorch version of the kernel, on x's device: the f32 result of
+    `conv3x3_plain` rounded to bf16."""
+    return conv3x3_plain(x, w_packed, bias, stride=1, activation=activation).to(torch.bfloat16)
 
 
 def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
@@ -46,7 +47,7 @@ def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
       bias: (C_out,) float32.
     Returns (B, H, W, C_out) bfloat16.
     """
-    check_operands(x, w_packed, bias, 1, activation, torch.float32,
+    check_operands(x, w_packed, bias, 1, activation, (torch.float32,),
                    lambda h, w, ci, co, s: shape_ok(ci, co, 3, s))
     if x.device.type == "cpu":
         return stem_plain(x, w_packed, bias, activation=activation)

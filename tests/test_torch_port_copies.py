@@ -2,8 +2,9 @@
 
 complex_yolov4_tpu_torch carries copies of the pure-Python / numpy pieces
 of the serving and evaluation paths (layer IR, model zoo, darknet cfg, KITTI
-constants and parsing, frame transforms, targets, synthetic scenes and
-trees, host rasters, the eval CLI config, the val dataset and loader) so
+constants and parsing, frame transforms and augmentations, targets,
+synthetic scenes and trees, host rasters, the train and eval CLI configs,
+the dataset and loader, the LR schedules, the logger and meters) so
 that it never imports JAX; each copy is held here to the JAX package's
 original: source copies by their syntax trees (docstrings aside), the rest
 by their outputs, bit for bit. Also: the port's kernel routing at 608 and
@@ -26,6 +27,7 @@ import pytest
 from complex_yolov4_tpu.config import kitti as jcnf
 from complex_yolov4_tpu.config import runtime as jrt
 from complex_yolov4_tpu.data import bev as jbev
+from complex_yolov4_tpu.data import dataset as jds
 from complex_yolov4_tpu.data import kitti as jkitti
 from complex_yolov4_tpu.data import loader as jloader
 from complex_yolov4_tpu.data import synthetic as jsyn
@@ -34,9 +36,13 @@ from complex_yolov4_tpu.data import transforms as jtf
 from complex_yolov4_tpu.data.dataset import KittiDataset as JDataset
 from complex_yolov4_tpu.models import darknet_cfg as jcfg
 from complex_yolov4_tpu.models import zoo as jzoo
+from complex_yolov4_tpu.train import schedules as jsched
+from complex_yolov4_tpu.utils import logger as jlog
+from complex_yolov4_tpu.utils import meters as jmeters
 from complex_yolov4_tpu_torch.config import kitti as tcnf
 from complex_yolov4_tpu_torch.config import runtime as trt
 from complex_yolov4_tpu_torch.data import bev as tbev
+from complex_yolov4_tpu_torch.data import dataset as tds
 from complex_yolov4_tpu_torch.data import kitti as tkitti
 from complex_yolov4_tpu_torch.data import loader as tloader
 from complex_yolov4_tpu_torch.data import synthetic as tsyn
@@ -46,6 +52,9 @@ from complex_yolov4_tpu_torch.data.dataset import KittiDataset as TDataset
 from complex_yolov4_tpu_torch.models import darknet_cfg as tcfg
 from complex_yolov4_tpu_torch.models import zoo as tzoo
 from complex_yolov4_tpu_torch.models.network import kernel_routes
+from complex_yolov4_tpu_torch.train import schedules as tsched
+from complex_yolov4_tpu_torch.utils import logger as tlog
+from complex_yolov4_tpu_torch.utils import meters as tmeters
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -75,11 +84,19 @@ def _top_level(module):
 # (JAX module, port module, names copied; None: the whole module)
 SOURCE_COPIES = {
     "config/kitti": (jcnf, tcnf, None),
-    "config/runtime": (jrt, trt, ("_add_fields", "_build", "parse_eval_config")),
+    "config/runtime": (jrt, trt, ("_add_fields", "_build", "parse_eval_config",
+                                  "parse_train_config")),
     "data/kitti": (jkitti, tkitti, None),
     "data/transforms": (jtf, ttf, ("_expand44", "camera_to_lidar_points",
                                    "lidar_to_camera_points", "camera_to_lidar_box",
-                                   "lidar_to_camera_box")),
+                                   "lidar_to_camera_box", "rotate_z", "lidar_box_rotate_z",
+                                   "Compose", "OneOf", "RandomRotation", "RandomScaling",
+                                   "HorizontalFlip", "Cutout", "default_lidar_transforms",
+                                   "default_aug_transforms")),
+    "data/dataset": (jds, tds, ("_ProbeUnsupported", "_AugProbe")),
+    "train/schedules": (jsched, tsched, ("multi_step_factor", "cosine_factor", "make_lr_fn")),
+    "utils/logger": (jlog, tlog, None),
+    "utils/meters": (jmeters, tmeters, ("AverageMeter", "ProgressMeter")),
     "data/targets": (jtgt, ttgt, ("MAX_TARGETS", "build_yolo_targets")),
     "data/synthetic": (jsyn, tsyn, ("_CLASS_DIMS", "_CLASS_NAMES", "_GROUND_Z",
                                     "_lidar_ground", "sample_scene",
@@ -115,6 +132,19 @@ def test_eval_config_fields():
             "--cells_raster", "--quantize", "int8", "--conf_thresh", "0.25"]
     j, t = jrt.parse_eval_config(argv), trt.parse_eval_config(argv + ["--device", "cpu"])
     assert dataclasses.asdict(t) == dict(dataclasses.asdict(j), device="cpu")
+
+
+def test_train_config_fields():
+    """The port's TrainConfig: the JAX package's fields and defaults, plus
+    `device`; the parser gives the same values for the same flags."""
+    jf = [(f.name, f.default) for f in dataclasses.fields(jrt.TrainConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(trt.TrainConfig)]
+    assert tf == jf + [("device", "cuda")]
+    argv = ["--model", "complex_yolov4_tiny", "--batch_size", "3", "--subdivisions", "2",
+            "--use_giou_loss", "--steps", "10", "20", "--optimizer_type", "sgd"]
+    j, t = jrt.parse_train_config(argv), trt.parse_train_config(argv + ["--device", "cpu"])
+    assert dataclasses.asdict(t) == dict(dataclasses.asdict(j), device="cpu")
+    assert t.checkpoints_dir == j.checkpoints_dir and t.logs_dir == j.logs_dir
 
 
 @pytest.fixture(scope="module")
@@ -262,6 +292,16 @@ def test_kernel_routes_at_608():
                       16: "conv3x3", 19: "conv3x3"}
 
 
+def test_kernel_routes_at_608_f32():
+    """f32 compute: the 3x3 kernel's layers, no stem (the JAX executor takes
+    its stem in bf16 only)."""
+    spec = tzoo.get_model_spec("complex_yolov4")
+    import torch
+
+    assert kernel_routes(spec, 608, torch.float32) == {
+        1: "conv3x3", 6: "conv3x3", 11: "conv3x3", 16: "conv3x3", 19: "conv3x3"}
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports with jax, the JAX package and cv2
     blocked (the card's host has no opencv)."""
@@ -274,7 +314,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 30, names\n"
+        "assert len(names) >= 40, names\n"
         "bad = [m for m, v in sys.modules.items() if v is not None\n"
         "       and m.startswith(('jax', 'complex_yolov4_tpu.', 'cv2'))]\n"
         "assert not bad, bad\n"

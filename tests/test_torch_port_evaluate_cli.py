@@ -4,10 +4,11 @@ the CPU.
 - points (the default), `--cells_raster` with a padded tail batch, and
   `--quantize int8 --compute_dtype bfloat16` run end to end with
   `--device cpu` and print the JAX CLI's report;
-- `--quantize int8 --compute_dtype float32`, a JAX capability the port
-  lacks, raises; so do an f32 `Darknet` on a CUDA device (f32 has no
-  kernel path), an orbax checkpoint directory and `--device cuda` without
-  CUDA;
+- `--quantize int8 --compute_dtype float32` serves (the int8 kernel's f32
+  output); fused stages in f32, an orbax checkpoint directory and
+  `--device cuda` without CUDA raise; an f32 `Darknet` on a CUDA device is
+  no longer refused by the port (it routes its 3x3 layers to the f32
+  kernel with TF32 off);
 - a darknet `.weights` file written by the JAX package's
   `save_darknet_weights` loads into the same trees in both packages and
   gives the same per-class lines and mAP through `--pretrained_path` in
@@ -86,19 +87,47 @@ def test_synthetic_tree_written_once(tmp_path, monkeypatch):
     assert common.resolve_dataset_dir(config) == root
 
 
-def test_int8_f32_raises(root):
-    with pytest.raises(ValueError, match="--compute_dtype bfloat16"):
-        main(_argv(root, "--num_samples", "1", "--quantize", "int8",
-                   "--compute_dtype", "float32"))
-
-
-def test_f32_on_cuda_raises():
-    """An f32 network would route no layer to a kernel: on a CUDA device it
-    raises before any buffer is placed, so this holds without a card."""
+def test_int8_f32_raises(root, capsys):
+    """int8 with f32 compute serves as the JAX package does (`network.py:496`):
+    calibrated in f32, the int8 convs write f32. What still raises is an f32
+    network with fused stages, which run in bf16 only."""
+    out, model = main(_argv(root, "--num_samples", "2", "--batch_size", "2", "--quantize",
+                            "int8", "--compute_dtype", "float32", "--calib_batches", "1"))
+    assert "PTQ int8" in capsys.readouterr().out and np.isfinite(float(out["mAP"]))
+    assert model.compute_dtype == torch.float32
+    assert "int8" in model.routes(608).values()
+    assert {kw.get("out", "bf16") for kw in model._int8_kw.values()} <= {"f32", "int8"}
     spec = zoo.get_model_spec(NAME)
     state = weights.from_folded(spec, weights.fold_batchnorm(
         spec, *weights.init_params_np(spec, 0)))
-    with pytest.raises(ValueError, match="--compute_dtype bfloat16"):
+    with pytest.raises(ValueError, match="bf16 compute only"):
+        Darknet(spec, state, compute_dtype=torch.float32, device=torch.device("cpu"),
+                fused_stages=True)
+
+
+def test_f32_on_cuda_raises():
+    """An f32 network on a CUDA device is no longer refused by the port: its
+    routes at 608 are the 3x3 kernel's layers, with no stem, and its forward
+    runs with TF32 off (`precision_scope`, restored after). Without a card,
+    only torch's placement of the buffers on the absent device raises."""
+    from complex_yolov4_tpu_torch.models.network import kernel_routes, precision_scope
+
+    spec = zoo.get_model_spec(NAME)
+    assert set(kernel_routes(spec, 608, torch.float32).values()) == {"conv3x3"}
+    state = weights.from_folded(spec, weights.fold_batchnorm(
+        spec, *weights.init_params_np(spec, 0)))
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with precision_scope(torch.float32, torch.device("cuda")):
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
         Darknet(spec, state, compute_dtype=torch.float32, device=torch.device("cuda"))
 
 

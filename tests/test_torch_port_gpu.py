@@ -1,5 +1,5 @@
 """Port CUDA kernels on the card vs their plain PyTorch versions; the
-device points raster and the eval CLI on the card.
+device points raster, the eval and train CLIs and TF32 on the card.
 
 Marked `gpu`: each test skips without a CUDA device (decided inside the
 test, so every worker collects the same tests). Run them on the card with
@@ -10,8 +10,10 @@ test, so every worker collects the same tests). Run them on the card with
 this file imports only torch and the port.) Conv kernel and plain version
 see the same bf16 operands and both accumulate in f32, so they agree to one
 bf16 ulp; values below 2^-10 of the tensor's largest, where the sum
-cancels, are held to the ulp of that floor. The fused-stage and int8
-tests state their own bounds.
+cancels, are held to the ulp of that floor. The f32 instance of the 3x3
+kernel and its plain version round the same f32 input to bf16 and keep f32
+sums and outputs, so they agree within 1e-4 of max |plain|. The
+fused-stage and int8 tests state their own bounds.
 """
 
 import numpy as np
@@ -119,9 +121,120 @@ def test_conv3x3_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, fill)
         _check_ones(got, c_in)
 
 
+# The f32 instances (wgmma for C_in 32 and 64, mma.sync for 128, the stride
+# at run time) on the main-path shapes, ragged tiles and padded C_in.
+@pytest.mark.parametrize("c_in,c_out,stride,act,hw,batch,fill", [
+    (32, 64, 2, "mish", 608, 1, "rand"), (32, 64, 1, "mish", 304, 2, "rand"),
+    (64, 128, 2, "mish", 304, 1, "rand"), (64, 64, 1, "leaky", 152, 2, "rand"),
+    (128, 128, 1, "linear", 130, 2, "rand"), (128, 64, 2, "mish", 256, 1, "rand"),
+    (24, 40, 2, "relu", (140, 260), 1, "rand"), (64, 64, 1, "linear", (130, 136), 1, "ones")])
+def test_conv3x3_f32_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, fill):
+    dev = _cuda()
+    x, w, b = _operands(dev, batch, hw, c_in, c_out, torch.float32, fill=fill)
+    n0 = conv_mod.conv3x3_fused.launches
+    got = conv_mod.conv3x3_fused(x, w, b, stride=stride, activation=act)
+    torch.cuda.synchronize()
+    assert conv_mod.conv3x3_fused.launches == n0 + 1
+    ref = conv_mod.conv3x3_plain(x, w, b, stride=stride, activation=act)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    if fill == "ones":
+        _check_ones(got, c_in)
+
+
+def test_f32_forward_runs_without_tf32(monkeypatch):
+    """An f32 Darknet on the card: its cuDNN convs see TF32 off (the
+    caller's setting restored after), and its 3x3 layers launch the f32
+    kernel."""
+    import torch.nn.functional as F
+
+    from complex_yolov4_tpu_torch.models import network, weights, zoo
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4")
+    model = network.Darknet(spec, weights.from_folded(spec, weights.fold_batchnorm(
+        spec, *weights.init_params_np(spec, 0))), compute_dtype=torch.float32, device=dev)
+    seen = []
+    real_conv2d = F.conv2d
+
+    def conv2d(*args, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return real_conv2d(*args, **kw)
+
+    monkeypatch.setattr(network.F, "conv2d", conv2d)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    n0 = conv_mod.conv3x3_fused.launches
+    x = torch.rand(1, 3, 608, 608, device=dev)
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert seen and not any(a or b for a, b in seen)
+    assert conv_mod.conv3x3_fused.launches - n0 == 5
+    assert bool(torch.isfinite(out).all())
+    # the whole f32 network against its all-plain run (the 3x3 layers through
+    # conv3x3_plain, the same bf16 rounding, only the f32 summation order
+    # differs): per column within 1e-3 of the column's scale, conf/cls within
+    # 1e-3, as chip_smoke's f32 head check
+    with torch.inference_mode():
+        ref = model(x, kernels=False)
+    diff = (out - ref).abs().amax(dim=(0, 1))
+    assert float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max()) <= 1e-3
+    assert float(diff[6:].max()) <= 1e-3
+
+
+def test_f32_train_step_runs_without_tf32(monkeypatch):
+    """One f32 train step on the card: the forward's convs and the backward
+    (read by a gradient hook on every parameter) see TF32 off, the caller's
+    setting restored after; training launches no kernel."""
+    import torch.nn.functional as F
+
+    from complex_yolov4_tpu_torch import train as T
+    from complex_yolov4_tpu_torch.models import network, weights, zoo
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4_tiny")
+    model = network.TrainDarknet(spec, compute_dtype=torch.float32)
+    model.load_state_dict(weights.to_train_state(spec, *weights.init_params_np(spec, 0)))
+    model.to(dev)
+    state = T.TrainState(model, T.create_optimizer(model))
+    seen_fwd, seen_bwd = [], []
+    real_conv2d = F.conv2d
+
+    def flags():
+        return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+    def conv2d(*args, **kw):
+        seen_fwd.append(flags())
+        return real_conv2d(*args, **kw)
+
+    monkeypatch.setattr(network.F, "conv2d", conv2d)
+    for p in model.parameters():
+        p.register_hook(lambda g: seen_bwd.append(flags()))
+    rng = np.random.default_rng(0)
+    targets = np.zeros((2, 50, 7), np.float32)
+    targets[:, :3] = [[0, 0.4, 0.5, 0.05, 0.1, 0.6, 0.8]]
+    mask = np.zeros((2, 50), np.float32)
+    mask[:, :3] = 1.0
+    batch = {"image": rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32),
+             "targets": targets, "target_mask": mask}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    n0 = conv_mod.conv3x3_fused.launches
+    out = T.make_train_step()(state, batch, 1e-3, 0, False)
+    torch.cuda.synchronize()
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    assert seen_fwd and not any(a or b for a, b in seen_fwd)
+    assert len(seen_bwd) == len(list(model.parameters()))
+    assert not any(a or b for a, b in seen_bwd)
+    assert conv_mod.conv3x3_fused.launches == n0
+    assert np.isfinite(float(out["loss"]))
+
+
 def test_cuda_wrappers_raise_not_fall_back():
     dev = _cuda()
-    x, w, b = _operands(dev, 1, 128, 32, 64, torch.float32)  # f32 x: wrong for conv3x3
+    x, w, b = _operands(dev, 1, 128, 32, 64, torch.float16)  # neither bf16 nor f32
     with pytest.raises(TypeError):
         conv_mod.conv3x3_fused(x, w, b, stride=1, activation="mish")
     with pytest.raises(ValueError):
@@ -270,16 +383,47 @@ def test_evaluate_cli_on_card(flags, tmp_path, capsys):
     assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
 
 
-def test_evaluate_cli_f32_on_card_raises(tmp_path):
-    """The JAX CLI's default float32 has no kernel path on the card: the
-    port's CLI raises, naming --compute_dtype bfloat16, instead of serving
-    the whole network as plain PyTorch."""
+def test_evaluate_cli_f32_default_on_card(tmp_path, capsys):
+    """The eval CLI with no flags (the JAX CLI's default float32) on the
+    card: the 3x3 layers launch the f32 kernel once per batch each, no
+    stem, and the report prints."""
     from complex_yolov4_tpu_torch.cli import evaluate
     from complex_yolov4_tpu_torch.data import synthetic
 
     _cuda()
-    root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=0, num_val=2,
+    root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=0, num_val=4,
                                             num_test=0, seed=0)
-    with pytest.raises(ValueError, match="--compute_dtype bfloat16"):
-        evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
-                       "--batch_size", "2"])
+    conv_mod.conv3x3_fused.launches = stem_mod.conv3x3_stem.launches = 0
+    out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
+                                "--batch_size", "2"])
+    routes = list(model.routes(608).values())
+    assert model.compute_dtype == torch.float32 and "stem" not in routes
+    assert conv_mod.conv3x3_fused.launches == 2 * routes.count("conv3x3") > 0
+    assert stem_mod.conv3x3_stem.launches == 0
+    assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
+
+
+def test_train_cli_on_card(tmp_path):
+    """The train CLI on its default device: complex_yolov4_tiny, bf16, two
+    micro-batches of 2 into one optimizer step, f32 validation through the
+    f32 3x3 kernel, a checkpoint that the eval CLI loads."""
+    import os
+
+    from complex_yolov4_tpu_torch.cli import evaluate, train
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    _cuda()
+    root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=4, num_val=2,
+                                            num_test=0, seed=0)
+    wd = str(tmp_path / "wd")
+    conv_mod.conv3x3_fused.launches = 0
+    timings = {}
+    state = train.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
+                        "--batch_size", "2", "--subdivisions", "2", "--num_epochs", "1",
+                        "--working_dir", wd, "--print_freq", "1"], timings=timings)
+    assert state.global_step == 2 and state.device.type == "cuda"
+    assert conv_mod.conv3x3_fused.launches > 0  # validation only: training runs no kernel
+    ckpt = os.path.join(wd, "checkpoints", "complexer_yolo", "epoch_1.ckpt")
+    out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
+                                "--batch_size", "2", "--pretrained_path", ckpt])
+    assert model.device.type == "cuda" and np.isfinite(float(out["mAP"]))

@@ -98,7 +98,7 @@ def test_conv3x3_wrapper_rejects(case):
     x, w, b = _operands(torch.bfloat16)
     kw = {"stride": 1, "activation": "mish"}
     if case == "x_dtype":
-        x = x.float()
+        x = x.half()  # neither bf16 nor f32, the two dtypes the kernel takes
     elif case == "w_dtype":
         w = w.float()
     elif case == "bias_dtype":
