@@ -53,10 +53,13 @@ fallback):
      stage, which no single PyTorch call computes. A kernel slower than
      library_ms loses to the library. The port never calls it;
 4. slice — complex_yolov4 at 608, full width, bf16, random weights from
-   seed 0, serves 4 requests of 8 synthetic scenes through the port's
-   `make_inference_fn(from_cells=True)` (host COO aggregation, device
-   raster, network, decode, rotated NMS at k=64, conf 0.5, nms 0.5), on
-   two paths, each with the launch counts set to 0 just before it:
+   seed 0, serves 8 requests of 8 raw synthetic scenes through the port's
+   `make_inference_fn(from_cells=True)` (host crop and COO aggregation,
+   device raster, network, decode, rotated NMS at k=64, conf 0.5, nms
+   0.5), on two paths, each with the launch counts set to 0 just before
+   it. Every request is served twice, its COO built once by numpy and once
+   by the native library (phase 7 (c); the order alternates, the packed
+   arrays must be equal), and each prints its measured e2e frames/s:
    - path 1, bf16: the stem kernel must launch once and the 3x3 kernel
      five times per request;
    - path 2, int8 PTQ (`default_skip`, calibrated on 2 synthetic frames)
@@ -97,37 +100,67 @@ fallback):
    default f32 compute (the weights checked equal to the trained module's,
    the launches as predicted, the decoded heads of 2 frames within 1e-3 of
    the all-plain f32 path, and f32 eval frames/s of a warm pass over 3 batches
-   of 8, the first left out), and again with `--quantize int8` in f32
-   compute (calibrated in f32; the int8 convs write f32, or int8 where
-   chained, 68 int8 launches per batch). Then, on the trained state: 12
+   of 8, the first left out), and again, on its first 8 frames, with
+   `--quantize int8` in f32 compute (calibrated in f32; the int8 convs
+   write f32, or int8 where chained, 68 int8 launches per batch). Then, on the trained state: 12
    steps on one fixed batch (the loss finite and lower after them than
    before), and train images/s over 3 windows of 8 synced steps (each
    window printed), the device's busy share of 3 profiled steps
    (torch.profiler), a forward / loss / backward / optimizer split
    (synced stages of 3 further steps) and the peak memory.
+7. host and test — (a) g++ builds the native host rasterizer
+   (complex_yolov4_tpu_torch/native/, beside nvcc in phase 2; any failure
+   fails the run, there is no numpy fallback here); (b) on phase 5's 16
+   frames its `rasterize_points`, `aggregate_cells` and `rasterize_files`
+   equal the numpy `make_bev_map`, `aggregate_bev_cells` and per-frame
+   rasters bit for bit; (c) runs inside phase 4: each request served
+   with its COO built by numpy and by the native library, their host COO
+   ms and measured e2e frames/s side by side; (d) the fused native
+   mosaic within 1e-6 of the numpy canvas after `resize_linear` (and how
+   many are bit-equal), with equal targets and RNG state, for 3 (seed,
+   index) pairs; (e) `cli.train.main --mosaic` on 48 train frames of their
+   own (complex_yolov4 @608 bf16, batch 4, --subdivisions 2, no
+   validation; 12 micro-batches), the launch counts set to 0 just before
+   (training launches none): losses finite, iteration and loader-wait ms,
+   train images/s over the 10 micro-batches after the profiled one, and
+   the mosaic loader's host ms alone; (f) on that run's state and one
+   mosaic batch, two steps without and two with `--remat` from the same
+   state: losses within 1e-3 relative, BN running statistics within 2^-8
+   of each leaf's max, and remat's peak memory below the plain step's;
+   then 6 further synced steps of each for its ms/step; (g) the same run's
+   `--profile_steps 1 --profile_start 1` leaves one torch.profiler trace in
+   its logs_dir; (h) `cli.test.main` on 48 synthetic test frames
+   (complex_yolov4 @608 bf16, batch 8, points raster), the launch counts
+   set to 0 just before: stem 1 and 3x3 5 per batch, detections finite,
+   inference ms per frame and frames/s of the first batch (cold) and of
+   the 5 after it (warm).
 
 Each phase prints its wall time on a `[time]` line.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel JSON record (launches: the sum over the served and
-evaluated runs of phases 4 to 6, the f32 instance's over phase 6's f32
+the per-kernel JSON record (launches: the sum over the served, evaluated
+and tested runs of phases 4, 5 and 7, the f32 rows' over phase 6's f32
 runs), and the line before that nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import importlib
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 BATCH = 8
-REQUESTS = 4
+REQUESTS = 8
 SEED = 0
 # (name, H=W in, C_in, C_out, stride) of the 3x3-kernel layers at 608
 CONV3X3_LAYERS = (("L1", 608, 32, 64, 2), ("L6", 304, 32, 64, 1),
@@ -172,6 +205,15 @@ TRAIN_WINDOWS, TRAIN_WINDOW_STEPS, PROFILED_STEPS = 3, 8, 3
 # phase 5: (label, extra CLI flags, FUSED_STAGE) of the evaluated configurations
 EVAL_FRAMES = 16
 EVAL_CONF = 0.45
+# phase 7: test frames of cli.test (6 batches: one cold, five warm); train
+# frames of the --mosaic run (12 micro-batches, ten timed); (seed, index)
+# pairs of the mosaic check; the remat losses' relative tolerance (bf16) and
+# the synced steps timed after the two compared ones
+TEST_FRAMES = 48
+MOSAIC_FRAMES = 48
+MOSAIC_PAIRS = ((0, 0), (1, 5), (2, 11))
+REMAT_LOSS_REL = 1e-3
+REMAT_TIMED_STEPS = 6
 EVAL_CONFIGS = (("points", (), False), ("cells", ("--cells_raster",), False),
                 ("host", ("--host_raster",), False),
                 ("int8", ("--quantize", "int8", "--calib_batches", "1"), True))
@@ -344,15 +386,18 @@ def phase_kernels(dev):
     from complex_yolov4_tpu_torch.ops import stem_conv as stem_mod
 
     rng = np.random.default_rng(SEED)
+    # the activations are drawn on the card (seeded): up to 95M values a
+    # shape, seconds of host time in numpy
+    gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def operands(hw, c_in, c_out, x_dtype):
-        x = rng.uniform(0.0, 1.0, (BATCH, hw, hw, c_in)) if x_dtype == torch.float32 \
-            else rng.normal(0.0, 1.0, (BATCH, hw, hw, c_in))
+        shape = (BATCH, hw, hw, c_in)
+        x = (torch.rand(shape, generator=gen, device=dev) if x_dtype == torch.float32
+             else torch.randn(shape, generator=gen, device=dev))
         bound = float(np.sqrt(1.0 / (9 * c_in)))
         w = rng.uniform(-bound, bound, (c_out, c_in, 3, 3)).astype(np.float32)
         b = rng.normal(0.0, 0.1, c_out).astype(np.float32)
-        return (torch.from_numpy(x.astype(np.float32)).to(dev, x_dtype),
-                conv_mod.pack_weight(torch.from_numpy(w)).to(dev),
+        return (x.to(x_dtype), conv_mod.pack_weight(torch.from_numpy(w)).to(dev),
                 torch.from_numpy(b).to(dev))
 
     # (label, key, x, w, b, stride, kernel fn, plain fn, timing reps)
@@ -360,7 +405,7 @@ def phase_kernels(dev):
     x, w, b = operands(608, 3, 32, torch.float32)
     cases.append(("stem L0", "stem_conv3x3", x, w, b, 1,
                   lambda x, w, b, s: stem_mod.conv3x3_stem(x, w, b, activation="mish"),
-                  lambda x, w, b, s: stem_mod.stem_plain(x, w, b, activation="mish"), 20))
+                  lambda x, w, b, s: stem_mod.stem_plain(x, w, b, activation="mish"), 10))
     for name, hw, c_in, c_out, stride in CONV3X3_LAYERS:
         x, w, b = operands(hw, c_in, c_out, torch.bfloat16)
         cases.append((f"conv3x3 {name}", "conv3x3_fused", x, w, b, stride,
@@ -455,10 +500,14 @@ def phase_fused(dev):
     rec = new_record()
     rec["library_ms"] = None
     failed = []
+    nets = {}  # model name -> (spec, weights on the card), made once
     for n, (name, span, hw, batch) in enumerate(FUSED_CASES):
-        spec = zoo.get_model_spec(name)
-        params, state = weights.init_params_np(spec, SEED)
-        st = {k: v.to(dev) for k, v in weights.from_jax_params(spec, params, state).items()}
+        if name not in nets:
+            spec = zoo.get_model_spec(name)
+            params, state = weights.init_params_np(spec, SEED)
+            nets[name] = (spec, {k: v.to(dev) for k, v in
+                                 weights.from_jax_params(spec, params, state).items()})
+        spec, st = nets[name]
         seg = next(s for s in fs.plan_segments(spec, 608) if (s.start, s.end) == span)
         sw = fs.segment_weights(seg, st)
         x = torch.from_numpy(np.random.default_rng(SEED + n).normal(
@@ -573,6 +622,7 @@ def phase_int8(dev):
     shapes, chained = int8_shapes(), int8_chained_out()
     assert sum(shapes.values()) == 68, shapes
     rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # activations, drawn on the card
     rec = new_record()
     rec.update(library_ms=None, library_layers=0, ms_on_library_layers=0.0, device_ms=0.0,
                library_device_ms=0.0, device_ms_on_library_layers=0.0)
@@ -583,11 +633,11 @@ def phase_int8(dev):
     inv_s_x = float(np.float32(1.0) / s_x)
     for key, count in sorted(shapes.items()):
         k, stride, c_in, c_out, hw, src = key
-        x8 = torch.from_numpy(rng.integers(-127, 128, (BATCH, hw, hw, c_in))
-                              .astype(np.int8)).to(dev)
+        shape = (BATCH, hw, hw, c_in)
+        x8 = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
         # a bf16 input: N(0, 1), a few values past the clip at +-3
-        x = x8 if src == "int8" else torch.from_numpy(
-            rng.normal(0.0, 1.0, (BATCH, hw, hw, c_in)).astype(np.float32)).to(dev, torch.bfloat16)
+        x = x8 if src == "int8" else torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
         w = torch.from_numpy(rng.integers(-127, 128, (c_out, k * k * c_in)).astype(np.int8)).to(dev)
         # scales of a real layer: |h| of order 1 for |y| ~ sqrt(K) * 127^2 / 3
         s_w = rng.uniform(0.5, 1.5, c_out) / (127.0 * np.sqrt(k * k * c_in))
@@ -685,21 +735,31 @@ def phase_int8(dev):
     return rec, rec_f32
 
 
+@functools.lru_cache(maxsize=None)
+def raw_scenes(r: int):
+    """The 8 raw (uncropped) synthetic point clouds of request r (made once,
+    beside nvcc: `host_side`)."""
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    return [synthetic.sample_scene(np.random.default_rng(1000 * (r + 1) + b))[0]
+            for b in range(BATCH)]
+
+
 def make_scenes(r: int):
     """Set-up, untimed: the 8 cropped synthetic point clouds of request r."""
-    from complex_yolov4_tpu_torch.data import bev, synthetic
-
-    return [bev.remove_points_outside(
-        synthetic.sample_scene(np.random.default_rng(1000 * (r + 1) + b))[0])
-        for b in range(BATCH)]
-
-
-def host_coo(clouds):
-    """Host side of one request: cropped clouds -> flat COO arrays, with the
-    serving capacity policy (live cells + 1/8 headroom)."""
     from complex_yolov4_tpu_torch.data import bev
 
-    cells_l, keys_l = zip(*(bev.aggregate_bev_cells(c) for c in clouds))
+    return [bev.remove_points_outside(c) for c in raw_scenes(r)]
+
+
+def host_coo(clouds, aggregate=None):
+    """Host side of one request: clouds -> flat COO arrays, with the serving
+    capacity policy (live cells + 1/8 headroom). `aggregate` maps a cloud
+    to its (cells, keys): by default numpy's `aggregate_bev_cells` of a
+    cropped cloud (phase 4 serves with it)."""
+    from complex_yolov4_tpu_torch.data import bev
+
+    cells_l, keys_l = zip(*map(aggregate or bev.aggregate_bev_cells, clouds))
     total = sum(len(c) for c in cells_l)
     return bev.pack_cells_flat(list(cells_l), list(keys_l), total + total // 8)
 
@@ -747,9 +807,15 @@ def build_models(dev):
 
 
 def serve_path(label, spec, model, expected, compare_batch, dev):
-    """Serve REQUESTS requests of BATCH through make_inference_fn; the
-    launch counts are set to 0 just before and read just after. Returns
-    the launches and the device-part ms of each request."""
+    """Serve REQUESTS requests of BATCH raw clouds through make_inference_fn,
+    each twice: its COO built by numpy (crop, `aggregate_bev_cells`, pack)
+    and by the native library (`aggregate_cells` crops inside), in
+    alternating order, the packed arrays held equal. The launch counts are
+    set to 0 just before and read just after. Prints each COO's measured
+    e2e (host COO + device part, served one after the other). Returns the
+    launches."""
+    from complex_yolov4_tpu_torch import native
+    from complex_yolov4_tpu_torch.data import bev
     from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
 
     routes = model.routes(608)
@@ -759,46 +825,59 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
     print(f"[slice] {label}: {MODEL} @608 bf16, {len(spec.layers)} layers, "
           f"routed layers by kernel {kinds}")
     infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
-    scenes = [make_scenes(r) for r in range(REQUESTS)]
-    infer(model, *host_coo(make_scenes(-1)), BATCH)  # warm-up
+    coo = {"numpy": lambda raw: host_coo([bev.remove_points_outside(c) for c in raw]),
+           "native": lambda raw: host_coo(raw, native.aggregate_cells)}
+    infer(model, *coo["numpy"](raw_scenes(-1)), BATCH)  # warm-up
+    infer(model, *coo["native"](raw_scenes(-1)), BATCH)
     torch.cuda.synchronize()
 
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
-    host_s, infer_s, outs = [], [], []
+    host_s = {k: [] for k in coo}
+    infer_s = {k: [] for k in coo}
+    outs = []
     for r in range(REQUESTS):
-        t0 = time.perf_counter()
-        req = host_coo(scenes[r])
-        t1 = time.perf_counter()
-        dets, masks = infer(model, *req, BATCH)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host_s.append(t1 - t0)
-        infer_s.append(t2 - t1)
-        outs.append((req, dets, masks))
+        reqs = {}
+        for kind in (("numpy", "native") if r % 2 == 0 else ("native", "numpy")):
+            t0 = time.perf_counter()
+            req = reqs[kind] = coo[kind](raw_scenes(r))
+            t1 = time.perf_counter()
+            dets, masks = infer(model, *req, BATCH)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host_s[kind].append(t1 - t0)
+            infer_s[kind].append(t2 - t1)
+            outs.append((r, kind, req, dets, masks))
+        if not all(np.array_equal(a, b) for a, b in zip(reqs["numpy"], reqs["native"])):
+            raise AssertionError(f"request {r}: native COO pack differs from numpy")
     launches = {k: fn.launches for k, fn in fns.items()}
-    print(f"[slice] {label} launches over {REQUESTS} requests: {launches}")
-    want = {k: n * REQUESTS for k, n in expected.items()}
+    print(f"[slice] {label} launches over {REQUESTS} requests served twice: {launches}")
+    want = {k: n * 2 * REQUESTS for k, n in expected.items()}
     if launches != want:
         raise AssertionError(f"{label} did not run through the kernels: {launches} != {want}")
 
-    for r, (req, dets, masks) in enumerate(outs):
+    for r, kind, req, dets, masks in outs:
         if tuple(dets.shape) != (BATCH, 64, 9) or tuple(masks.shape) != (BATCH, 64):
             raise AssertionError(f"request {r}: shapes {tuple(dets.shape)} {tuple(masks.shape)}")
         if not bool(torch.isfinite(dets).all()):
             raise AssertionError(f"request {r}: non-finite detections")
-        print(f"[slice] {label} request {r}: cells={int((req[0] < BATCH * 609 * 609).sum())} "
-              f"detections/frame={masks.sum(1).int().tolist()} "
-              f"host_ms={host_s[r] * 1e3:.2f} infer_ms={infer_s[r] * 1e3:.2f}")
-    e2e = np.array(host_s) + np.array(infer_s)
-    print(f"[slice] {label} ms/request e2e (host COO + device) mean={e2e.mean() * 1e3:.2f} "
-          f"frames/s={BATCH / e2e.mean():.2f}; device part (raster..NMS) "
-          f"mean={np.mean(infer_s) * 1e3:.2f} ms frames/s={BATCH / np.mean(infer_s):.2f}")
+        if kind == "numpy":
+            print(f"[slice] {label} request {r}: cells={int((req[0] < BATCH * 609 * 609).sum())} "
+                  f"detections/frame={masks.sum(1).int().tolist()}")
+    for kind in coo:
+        h, d = np.array(host_s[kind]), np.array(infer_s[kind])
+        e2e = h + d
+        print(f"[slice] {label} served with {kind} COO, {REQUESTS} requests: host COO ms "
+              + " ".join(f"{x * 1e3:.2f}" for x in h) + f" (mean {h.mean() * 1e3:.2f}); "
+              f"device part (raster..NMS) mean={d.mean() * 1e3:.2f} ms "
+              f"frames/s={BATCH / d.mean():.2f}; e2e (host COO + device, measured) "
+              f"mean={e2e.mean() * 1e3:.2f} ms frames/s={BATCH / e2e.mean():.2f}")
+    first = next(o for o in outs if o[1] == "numpy")
 
     # decoded heads: kernel path vs all-plain path on the card
     with torch.inference_mode():
-        img = raster(outs[0][0], dev, BATCH)[:compare_batch].permute(0, 3, 1, 2)
+        img = raster(first[2], dev, BATCH)[:compare_batch].permute(0, 3, 1, 2)
         got = model(img, kernels=True)
         ref = model(img, kernels=False)
     torch.cuda.synchronize()
@@ -814,7 +893,7 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
           f"max abs err conf/cls={prob:.3g} (tol {PROB_ABS_TOL})")
     if rel > DECODED_REL_TOL or prob > PROB_ABS_TOL:
         raise AssertionError(f"{label}: kernel path and plain path disagree")
-    return launches, infer_s
+    return launches
 
 
 def layerwise_segments(model, dev):
@@ -1035,59 +1114,55 @@ def warm_pass(model, root, argv, flags):
     return timings
 
 
-def phase_evaluate(dev):
-    """Phase 5: the port's `cli.evaluate.main` on 16 synthetic val frames in
-    the four configurations. Returns {label: launches}."""
+def phase_evaluate(dev, root):
+    """Phase 5: the port's `cli.evaluate.main` on the 16 synthetic val
+    frames of `root` in the four configurations. Returns {label:
+    launches}."""
     import os
-    import tempfile
 
     from complex_yolov4_tpu_torch.cli import evaluate
-    from complex_yolov4_tpu_torch.data import synthetic
 
     launches, rows = {}, []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_") as tmp:
-        root = synthetic.generate_kitti_dataset(os.path.join(tmp, "kitti"), num_train=0,
-                                                num_val=EVAL_FRAMES, num_test=0, seed=0)
-        check_points_raster(root, dev)
-        check_oracle(root, dev)
-        fns = counters()
-        saved = os.environ.pop("FUSED_STAGE", None)
-        try:
-            for label, flags, fused in EVAL_CONFIGS:
-                if fused:
-                    os.environ["FUSED_STAGE"] = "1"
-                argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
-                        "--compute_dtype", "bfloat16", "--conf_thresh", str(EVAL_CONF),
-                        *flags]
-                cold = {}
-                for fn in fns.values():
-                    fn.launches = 0
-                out, model = evaluate.main(argv, timings=cold)
-                got = {k: fn.launches for k, fn in fns.items()}
-                os.environ.pop("FUSED_STAGE", None)
-                n_batches = len(cold["infer"])
-                per_batch, want = expected_launches(model, n_batches,
-                                                    1 if "--quantize" in flags else 0)
-                print(f"[eval] {label}: launches over {n_batches} batches {got}; "
-                      f"per batch from model.routes(608) {per_batch}")
-                if got != want or n_batches != EVAL_FRAMES // BATCH:
-                    raise AssertionError(f"{label} did not run through the kernels: {got} != {want}")
-                if per_batch != (LAUNCHES_PATH2 if fused else LAUNCHES_PATH1):
-                    raise AssertionError(f"{label}: unexpected routes {per_batch}")
-                if sum(cold["detections"]) == 0:
-                    raise AssertionError(f"{label}: no detection survived NMS at conf "
-                                         f"{EVAL_CONF}; the mAP would be vacuous")
-                launches[label] = got
-                first, _ = eval_loader(root, flags)
-                check_heads(label, model, next(iter(first)), dev)
-                warm = warm_pass(model, root, argv, flags)
-                host_ms, cap_ms = loader_ms(root, flags)
-                rows.append((label, float(out["mAP"]), host_ms, cap_ms, cold, warm))
-                del model
-        finally:
+    check_points_raster(root, dev)
+    check_oracle(root, dev)
+    fns = counters()
+    saved = os.environ.pop("FUSED_STAGE", None)
+    try:
+        for label, flags, fused in EVAL_CONFIGS:
+            if fused:
+                os.environ["FUSED_STAGE"] = "1"
+            argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
+                    "--compute_dtype", "bfloat16", "--conf_thresh", str(EVAL_CONF),
+                    *flags]
+            cold = {}
+            for fn in fns.values():
+                fn.launches = 0
+            out, model = evaluate.main(argv, timings=cold)
+            got = {k: fn.launches for k, fn in fns.items()}
             os.environ.pop("FUSED_STAGE", None)
-            if saved is not None:
-                os.environ["FUSED_STAGE"] = saved
+            n_batches = len(cold["infer"])
+            per_batch, want = expected_launches(model, n_batches,
+                                                1 if "--quantize" in flags else 0)
+            print(f"[eval] {label}: launches over {n_batches} batches {got}; "
+                  f"per batch from model.routes(608) {per_batch}")
+            if got != want or n_batches != EVAL_FRAMES // BATCH:
+                raise AssertionError(f"{label} did not run through the kernels: {got} != {want}")
+            if per_batch != (LAUNCHES_PATH2 if fused else LAUNCHES_PATH1):
+                raise AssertionError(f"{label}: unexpected routes {per_batch}")
+            if sum(cold["detections"]) == 0:
+                raise AssertionError(f"{label}: no detection survived NMS at conf "
+                                     f"{EVAL_CONF}; the mAP would be vacuous")
+            launches[label] = got
+            first, _ = eval_loader(root, flags)
+            check_heads(label, model, next(iter(first)), dev)
+            warm = warm_pass(model, root, argv, flags)
+            host_ms, cap_ms = loader_ms(root, flags)
+            rows.append((label, float(out["mAP"]), host_ms, cap_ms, cold, warm))
+            del model
+    finally:
+        os.environ.pop("FUSED_STAGE", None)
+        if saved is not None:
+            os.environ["FUSED_STAGE"] = saved
 
     def ms(xs):
         return " ".join(f"{x * 1e3:.2f}" for x in xs)
@@ -1205,17 +1280,16 @@ def warm_rate(t, frames_per_batch):
     return frames_per_batch * len(rest) / sum(rest)
 
 
-def phase_train(dev):
-    """Phase 6: `cli.train.main` on a synthetic tree, then its checkpoint in
+def phase_train(dev, tmp, root):
+    """Phase 6: `cli.train.main` on the synthetic train tree `root` (its
+    working directory under `tmp`), then its checkpoint in
     `cli.evaluate.main` (f32, and int8 in f32 compute), a fixed-batch
     descent and the train throughput on the trained state. Returns {label:
     launches} of its f32 runs."""
     import os
-    import tempfile
 
     from complex_yolov4_tpu_torch.cli import evaluate, train
     from complex_yolov4_tpu_torch.data import loader as ld
-    from complex_yolov4_tpu_torch.data import synthetic
     from complex_yolov4_tpu_torch.models import zoo
     from complex_yolov4_tpu_torch.models.network import kernel_routes
 
@@ -1228,114 +1302,379 @@ def phase_train(dev):
         print(f"[time] phase 6 {what}: {now - clock[0]:.1f} s")
         clock[0] = now
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        root = synthetic.generate_kitti_dataset(
-            os.path.join(tmp, "kitti"), num_train=TRAIN_FRAMES, num_val=TRAIN_VAL_FRAMES,
-            num_test=0, seed=1)
-        spec_routes = kernel_routes(zoo.get_model_spec(MODEL), 608, torch.float32)
-        per_val_batch = sum(1 for r in spec_routes.values() if r == "conv3x3")
-        val_batches = -(-TRAIN_VAL_FRAMES // TRAIN_BATCH)
-        argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(TRAIN_BATCH),
-                "--subdivisions", str(TRAIN_SUBDIV), "--num_epochs", "1",
-                "--working_dir", os.path.join(tmp, "wd"), "--print_freq", "1",
-                "--checkpoint_freq", "1", "--conf_thresh", str(EVAL_CONF)]
-        lap("synthetic tree")
-        for fn in fns.values():
-            fn.launches = 0
-        timings = {}
-        t0 = time.perf_counter()
-        state = train.main(argv, timings=timings)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {k: fn.launches for k, fn in fns.items()}
-        want = dict.fromkeys(KERNEL_NAMES, 0)
-        want["conv3x3_fused"] = per_val_batch * val_batches
-        n_steps = len(timings["step"])
-        print(f"[train] cli.train: {MODEL} @608 bf16 batch {TRAIN_BATCH}, subdivisions "
-              f"{TRAIN_SUBDIV}: {n_steps} micro-batches, {state.global_step // TRAIN_SUBDIV} "
-              f"optimizer steps, step ms (host, first pays first-use costs) "
-              + " ".join(f"{x * 1e3:.1f}" for x in timings["step"])
-              + f"; f32 validation mAP={timings['mAP'][0]:.4f} in {timings['val'][0]:.2f} s; "
-              f"whole run {wall:.1f} s; launches {got} (validation: {per_val_batch} f32 3x3 "
-              f"launches per batch from the f32 routes {spec_routes}, {val_batches} batches)")
-        if (n_steps != TRAIN_FRAMES // TRAIN_BATCH or state.global_step != n_steps
-                or got != want):
-            raise AssertionError(f"train run: {n_steps} steps, launches {got} != {want}")
-        launches["train (f32 validation)"] = got
-        ckpt = os.path.join(tmp, "wd", "checkpoints", "complexer_yolo", "epoch_1.ckpt")
-        lap("cli.train")
+    spec_routes = kernel_routes(zoo.get_model_spec(MODEL), 608, torch.float32)
+    per_val_batch = sum(1 for r in spec_routes.values() if r == "conv3x3")
+    val_batches = -(-TRAIN_VAL_FRAMES // TRAIN_BATCH)
+    argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(TRAIN_BATCH),
+            "--subdivisions", str(TRAIN_SUBDIV), "--num_epochs", "1",
+            "--working_dir", os.path.join(tmp, "train_wd"), "--print_freq", "1",
+            "--checkpoint_freq", "1", "--conf_thresh", str(EVAL_CONF)]
+    for fn in fns.values():
+        fn.launches = 0
+    timings = {}
+    t0 = time.perf_counter()
+    state = train.main(argv, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in fns.items()}
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["conv3x3_fused"] = per_val_batch * val_batches
+    n_steps = len(timings["step"])
+    print(f"[train] cli.train: {MODEL} @608 bf16 batch {TRAIN_BATCH}, subdivisions "
+          f"{TRAIN_SUBDIV}: {n_steps} micro-batches, {state.global_step // TRAIN_SUBDIV} "
+          f"optimizer steps, step ms (host, first pays first-use costs) "
+          + " ".join(f"{x * 1e3:.1f}" for x in timings["step"])
+          + f"; f32 validation mAP={timings['mAP'][0]:.4f} in {timings['val'][0]:.2f} s; "
+          f"whole run {wall:.1f} s; launches {got} (validation: {per_val_batch} f32 3x3 "
+          f"launches per batch from the f32 routes {spec_routes}, {val_batches} batches)")
+    if (n_steps != TRAIN_FRAMES // TRAIN_BATCH or state.global_step != n_steps
+            or got != want):
+        raise AssertionError(f"train run: {n_steps} steps, launches {got} != {want}")
+    launches["train (f32 validation)"] = got
+    ckpt = os.path.join(tmp, "train_wd", "checkpoints", "complexer_yolo", "epoch_1.ckpt")
+    lap("cli.train")
 
-        # the checkpoint in cli.evaluate, with its default f32 compute
-        eval_argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
-                     "--conf_thresh", str(EVAL_CONF), "--pretrained_path", ckpt]
-        for fn in fns.values():
-            fn.launches = 0
-        cold = {}
-        out, model = evaluate.main(eval_argv, timings=cold)
-        got = {k: fn.launches for k, fn in fns.items()}
-        n_batches = len(cold["infer"])
-        per_batch, want = expected_launches(model, n_batches, 0)
-        print(f"[train] checkpoint in cli.evaluate (f32, {TRAIN_VAL_FRAMES} frames, batch "
-              f"{BATCH}): mAP={float(out['mAP']):.4f} launches {got}, per batch from "
-              f"model.routes(608) {per_batch}; device_ms/batch "
-              + " ".join(f"{x * 1e3:.2f}" for x in cold["infer"])
-              + f"; eval frames/s (cold, every batch)={TRAIN_VAL_FRAMES / cold['total'][0]:.2f}")
-        if (got != want or model.compute_dtype != torch.float32 or per_batch["stem_conv3x3"]
-                or n_batches != TRAIN_VAL_FRAMES // BATCH):
-            raise AssertionError(f"f32 eval of the checkpoint: {got} != {want}")
-        ref = state.model.to_serving(dev, torch.float32)
-        for name, buf in ref.named_buffers():
-            if not torch.equal(buf, getattr(model, name)):
-                raise AssertionError(f"checkpoint weights differ from the trained model: {name}")
-        del ref
-        launches["eval f32 checkpoint"] = got
-        first, _ = eval_loader(root, ())
-        check_heads("f32 checkpoint", model, next(iter(first)), dev, rel_tol=F32_HEADS_TOL,
-                    prob_tol=F32_HEADS_TOL)
-        warm = warm_pass(model, root, eval_argv, ())
-        print(f"[train] f32 eval warm pass: device_ms/batch "
-              + " ".join(f"{x * 1e3:.2f}" for x in warm["infer"])
-              + " match_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["match"])
-              + " wait_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["load"])
-              + f"; eval frames/s over batches 2-{len(warm['infer'])} "
-              f"({TRAIN_VAL_FRAMES - BATCH} frames, the first batch left out)="
-              f"{warm_rate(warm, BATCH):.2f}")
-        del model
-        lap("f32 eval of the checkpoint")
+    # the checkpoint in cli.evaluate, with its default f32 compute
+    eval_argv = ["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
+                 "--conf_thresh", str(EVAL_CONF), "--pretrained_path", ckpt]
+    for fn in fns.values():
+        fn.launches = 0
+    cold = {}
+    out, model = evaluate.main(eval_argv, timings=cold)
+    got = {k: fn.launches for k, fn in fns.items()}
+    n_batches = len(cold["infer"])
+    per_batch, want = expected_launches(model, n_batches, 0)
+    print(f"[train] checkpoint in cli.evaluate (f32, {TRAIN_VAL_FRAMES} frames, batch "
+          f"{BATCH}): mAP={float(out['mAP']):.4f} launches {got}, per batch from "
+          f"model.routes(608) {per_batch}; device_ms/batch "
+          + " ".join(f"{x * 1e3:.2f}" for x in cold["infer"])
+          + f"; eval frames/s (cold, every batch)={TRAIN_VAL_FRAMES / cold['total'][0]:.2f}")
+    if (got != want or model.compute_dtype != torch.float32 or per_batch["stem_conv3x3"]
+            or n_batches != TRAIN_VAL_FRAMES // BATCH):
+        raise AssertionError(f"f32 eval of the checkpoint: {got} != {want}")
+    ref = state.model.to_serving(dev, torch.float32)
+    for name, buf in ref.named_buffers():
+        if not torch.equal(buf, getattr(model, name)):
+            raise AssertionError(f"checkpoint weights differ from the trained model: {name}")
+    del ref
+    launches["eval f32 checkpoint"] = got
+    first, _ = eval_loader(root, ())
+    check_heads("f32 checkpoint", model, next(iter(first)), dev, rel_tol=F32_HEADS_TOL,
+                prob_tol=F32_HEADS_TOL)
+    warm = warm_pass(model, root, eval_argv, ())
+    print(f"[train] f32 eval warm pass: device_ms/batch "
+          + " ".join(f"{x * 1e3:.2f}" for x in warm["infer"])
+          + " match_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["match"])
+          + " wait_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["load"])
+          + f"; eval frames/s over batches 2-{len(warm['infer'])} "
+          f"({TRAIN_VAL_FRAMES - BATCH} frames, the first batch left out)="
+          f"{warm_rate(warm, BATCH):.2f}")
+    del model
+    lap("f32 eval of the checkpoint")
 
-        # the checkpoint served int8 in f32 compute (calibrated in f32, the
-        # int8 convs writing f32)
-        for fn in fns.values():
-            fn.launches = 0
-        cold_i8 = {}
-        out_i8, model_i8 = evaluate.main(eval_argv + ["--quantize", "int8", "--calib_batches",
-                                                      "1"], timings=cold_i8)
-        got = {k: fn.launches for k, fn in fns.items()}
-        per_batch, want = expected_launches(model_i8, len(cold_i8["infer"]), 1)
-        print(f"[train] checkpoint in cli.evaluate --quantize int8 (f32 compute): "
-              f"mAP={float(out_i8['mAP']):.4f} launches {got}, per batch from "
-              f"model.routes(608) {per_batch} plus the f32 calibration batch; device_ms/batch "
-              + " ".join(f"{x * 1e3:.2f}" for x in cold_i8["infer"])
-              + f"; eval frames/s (cold, every batch)="
-              f"{TRAIN_VAL_FRAMES / cold_i8['total'][0]:.2f}")
-        if (got != want or per_batch["int8_conv"] != 68
-                or {kw.get("out") for kw in model_i8._int8_kw.values()} != {"f32", "int8"}):
-            raise AssertionError(f"int8 f32 eval of the checkpoint: {got} != {want}")
-        launches["eval int8 f32 checkpoint"] = got
-        del model_i8
-        lap("int8 f32 eval of the checkpoint")
+    # the checkpoint served int8 in f32 compute (calibrated in f32, the
+    # int8 convs writing f32)
+    for fn in fns.values():
+        fn.launches = 0
+    cold_i8 = {}
+    out_i8, model_i8 = evaluate.main(eval_argv + ["--quantize", "int8", "--calib_batches",
+                                                  "1", "--num_samples", str(BATCH)],
+                                     timings=cold_i8)
+    got = {k: fn.launches for k, fn in fns.items()}
+    per_batch, want = expected_launches(model_i8, len(cold_i8["infer"]), 1)
+    print(f"[train] checkpoint in cli.evaluate --quantize int8 (f32 compute, the first "
+          f"{BATCH} frames): "
+          f"mAP={float(out_i8['mAP']):.4f} launches {got}, per batch from "
+          f"model.routes(608) {per_batch} plus the f32 calibration batch; device_ms/batch "
+          + " ".join(f"{x * 1e3:.2f}" for x in cold_i8["infer"])
+          + f"; eval frames/s (cold, every batch)="
+          f"{BATCH / cold_i8['total'][0]:.2f}")
+    if (got != want or per_batch["int8_conv"] != 68
+            or {kw.get("out") for kw in model_i8._int8_kw.values()} != {"f32", "int8"}):
+        raise AssertionError(f"int8 f32 eval of the checkpoint: {got} != {want}")
+    launches["eval int8 f32 checkpoint"] = got
+    del model_i8
+    lap("int8 f32 eval of the checkpoint")
 
-        loader = ld.create_train_loader(root, TRAIN_BATCH, device_raster=True)
-        loader.set_epoch(1)
-        batch = next(iter(loader))
-        torch.cuda.empty_cache()
-        fixed_batch_descent(state, batch)
-        lap("fixed-batch descent")
-        train_throughput(state, batch, dev)
-        del state
-        torch.cuda.empty_cache()
-        lap("train throughput")
+    loader = ld.create_train_loader(root, TRAIN_BATCH, device_raster=True)
+    loader.set_epoch(1)
+    batch = next(iter(loader))
+    torch.cuda.empty_cache()
+    fixed_batch_descent(state, batch)
+    lap("fixed-batch descent")
+    train_throughput(state, batch, dev)
+    del state
+    torch.cuda.empty_cache()
+    lap("train throughput")
     return launches
+
+def make_trees(tmp):
+    """The synthetic KITTI trees of phases 5-7 under `tmp` (the port's
+    generator): 16 val frames (seed 0; phase 5, phase 7's native checks),
+    16 train and 24 val frames (seed 1; phase 6, phase 7's mosaic check),
+    48 train frames (seed 3; phase 7's --mosaic run and remat), 48 test
+    frames (seed 2; phase 7's cli.test)."""
+    import os
+
+    from complex_yolov4_tpu_torch.data import synthetic
+
+    return {"eval": synthetic.generate_kitti_dataset(
+                os.path.join(tmp, "eval_kitti"), num_train=0, num_val=EVAL_FRAMES,
+                num_test=0, seed=0),
+            "train": synthetic.generate_kitti_dataset(
+                os.path.join(tmp, "train_kitti"), num_train=TRAIN_FRAMES,
+                num_val=TRAIN_VAL_FRAMES, num_test=0, seed=1),
+            "mosaic": synthetic.generate_kitti_dataset(
+                os.path.join(tmp, "mosaic_kitti"), num_train=MOSAIC_FRAMES, num_val=0,
+                num_test=0, seed=3),
+            "test": synthetic.generate_kitti_dataset(
+                os.path.join(tmp, "test_kitti"), num_train=0, num_val=0,
+                num_test=TEST_FRAMES, seed=2)}
+
+
+def host_side(tmp):
+    """What runs on the card's host while nvcc builds the kernels (phase 2):
+    the trees (`make_trees`) and phase 4's raw scenes, and phase 7 (a) g++
+    builds the native host rasterizer (any failure fails the run: no numpy
+    fallback here), then (b) and (d) hold it bit for bit against the numpy
+    functions (`native_checks`). Nothing here is timed as a measurement: nvcc shares
+    the host. Returns the trees' roots."""
+    from complex_yolov4_tpu_torch import native
+
+    t0 = time.perf_counter()
+    roots = make_trees(tmp)
+    for r in range(-1, REQUESTS):
+        raw_scenes(r)
+    t1 = time.perf_counter()
+    so = native.build()
+    native.load()
+    t2 = time.perf_counter()
+    print(f"[native] {so.name} built by g++ in {t2 - t1:.1f} s, beside nvcc (the trees "
+          f"and phase 4's scenes took {t1 - t0:.1f} s)")
+    native_checks(roots["eval"], roots["train"])
+    print(f"[time] phase 7 (a, b, d: native build and checks, beside nvcc): "
+          f"{time.perf_counter() - t1:.1f} s")
+    return roots
+
+
+def native_checks(eval_root, train_root):
+    """Phase 7 (b) and (d): on the 16 val frames of phase 5's tree, the
+    native `rasterize_points`, `aggregate_cells` and `rasterize_files`
+    against the numpy `make_bev_map`, `aggregate_bev_cells` and per-frame
+    rasters, bit for bit; on phase 6's train frames, the fused native mosaic
+    against the numpy canvas after `resize_linear` (within 1e-6; how many
+    are bit-equal is printed), with equal targets, masks and RNG state."""
+    import glob
+    import os
+
+    from complex_yolov4_tpu_torch import native
+    from complex_yolov4_tpu_torch.data import bev, loader as ld
+    from complex_yolov4_tpu_torch.data.dataset import KittiDataset
+    from complex_yolov4_tpu_torch.data.kitti import read_velodyne
+    from complex_yolov4_tpu_torch.data.transforms import (default_aug_transforms,
+                                                          default_lidar_transforms)
+
+    paths = sorted(glob.glob(os.path.join(eval_root, "training", "velodyne", "*.bin")))
+    if len(paths) != EVAL_FRAMES:
+        raise AssertionError(f"phase 5's tree has {len(paths)} frames")
+    rasters = []
+    for path in paths:
+        pts = read_velodyne(path)
+        cropped = bev.remove_points_outside(pts)
+        got, (cells, keys) = native.rasterize_points(pts), native.aggregate_cells(pts)
+        c_ref, k_ref = bev.aggregate_bev_cells(cropped)
+        if not (np.array_equal(got, bev.make_bev_map(cropped)) and np.array_equal(cells, c_ref)
+                and np.array_equal(keys, k_ref)):
+            raise AssertionError(f"native raster or COO differs from numpy on {path}")
+        rasters.append(got)
+    if not np.array_equal(native.rasterize_files(paths), np.stack(rasters)):
+        raise AssertionError("rasterize_files differs from per-frame rasterize_points")
+    print(f"[host] native vs numpy on {EVAL_FRAMES} frames: rasterize_points == "
+          f"make_bev_map(remove_points_outside), aggregate_cells == aggregate_bev_cells, "
+          f"rasterize_files == per-frame rasters, bit for bit ok")
+
+    ds = KittiDataset(train_root, mode="train", lidar_transforms=default_lidar_transforms(),
+                      aug_transforms=default_aug_transforms(0.5, cutout_prob=0.5,
+                                                            cutout_fill_value=0.25),
+                      mosaic=True, random_padding=True)
+    worst, bitwise = 0.0, 0
+    for seed, index in MOSAIC_PAIRS:
+        index %= len(ds)
+        rng_n, rng_p = np.random.default_rng((11, seed)), np.random.default_rng((11, seed))
+        _, fused, t_n, m_n = ds._load_mosaic_native(index, rng_n)
+        _, canvas, t_p, m_p = ds._load_mosaic_python(index, rng_p)
+        ref = ld.resize_linear(canvas, 608)
+        err = float(np.abs(fused - ref).max())
+        worst, bitwise = max(worst, err), bitwise + int(np.array_equal(fused, ref))
+        if not (err <= 1e-6 and np.array_equal(t_n, t_p) and np.array_equal(m_n, m_p)
+                and rng_n.bit_generator.state == rng_p.bit_generator.state):
+            raise AssertionError(f"mosaic (seed {seed}, index {index}): native vs numpy "
+                                 f"max err {err}, targets or RNG state differ")
+    n = len(MOSAIC_PAIRS)
+    print(f"[host] fused native mosaic vs numpy canvas + resize_linear, {n} (seed, index) "
+          f"pairs: max abs err {worst:.3g} (tol 1e-6), {bitwise} of {n} bit-equal, targets, "
+          f"masks and RNG state equal ok")
+
+
+def mosaic_loader_ms(root):
+    """Host ms per micro-batch of the mosaic train loader alone (no prefetch
+    thread, the frame pool on), the epoch's batches of TRAIN_BATCH."""
+    from complex_yolov4_tpu_torch.data import loader as ld
+
+    loader = ld.create_train_loader(root, TRAIN_BATCH, mosaic=True, hflip_prob=0.5, seed=SEED)
+    loader.set_epoch(1)
+    loader.prefetch = 0
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def remat_check(state, batch, dev):
+    """Phase 7 (f): two bf16 steps on one fixed batch from the same state,
+    without and with --remat: losses within REMAT_LOSS_REL relative, BN
+    running statistics within bf16 rounding (2^-8 of each leaf's max), and
+    the peak memory of each; remat's must be lower. Then REMAT_TIMED_STEPS
+    further synced steps of each give its ms/step."""
+    from complex_yolov4_tpu_torch import train as T
+
+    model, opt = state.model, state.optimizer
+    snap_m = {k: v.clone() for k, v in model.state_dict().items()}
+    snap_o = copy.deepcopy(opt.state_dict())
+    runs = {}
+    for remat in (False, True):
+        model.load_state_dict(snap_m)
+        # a copy: the optimizer takes the tensors of the dict it loads as its
+        # own state and updates them in place
+        opt.load_state_dict(copy.deepcopy(snap_o))
+        step = T.make_train_step(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = [float(step(state, batch, 1e-4, 0, False)["loss"]) for _ in range(2)]
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith((".mean", ".var"))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_TIMED_STEPS):
+            step(state, batch, 1e-4, 0, False)
+        torch.cuda.synchronize()
+        runs[remat] = (losses, (time.perf_counter() - t0) / REMAT_TIMED_STEPS,
+                       torch.cuda.max_memory_allocated(dev) / 2 ** 30, stats)
+    (l0, s0, m0, b0), (l1, s1, m1, b1) = runs[False], runs[True]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    stat_rel = max(float((b1[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                   for k, v in b0.items())
+    ok = (loss_rel <= REMAT_LOSS_REL and stat_rel <= 2.0 ** -8 and m1 < m0
+          and all(np.isfinite(l0 + l1)))
+    print(f"[train7] --remat, 2 steps from one state on one batch of {TRAIN_BATCH}: losses "
+          f"{' '.join(f'{x:.6g}' for x in l0)} plain, {' '.join(f'{x:.6g}' for x in l1)} remat "
+          f"(max rel diff {loss_rel:.3g}, tol {REMAT_LOSS_REL}); BN running statistics max rel "
+          f"diff {stat_rel:.3g} (tol 2^-8); peak memory {m0:.2f} GiB plain, {m1:.2f} GiB remat; "
+          f"ms/step (synced over {REMAT_TIMED_STEPS} further steps) {s0 * 1e3:.1f} plain, "
+          f"{s1 * 1e3:.1f} remat (x{s1 / s0:.2f}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("--remat: losses, statistics or peak memory off")
+
+
+def phase_train_flags(dev, tmp, train_root):
+    """Phase 7 (e)-(g): `cli.train.main --mosaic` with one profiled step
+    (complex_yolov4 @608 bf16, batch 4, --subdivisions 2, no validation) on
+    the MOSAIC_FRAMES train frames of `train_root`, then --remat on its
+    state. Returns the
+    launches of the training run (none: training runs no hand kernel)."""
+    import glob
+    import os
+
+    from complex_yolov4_tpu_torch.cli import train
+    from complex_yolov4_tpu_torch.data import loader as ld
+
+    fns = counters()
+    wd = os.path.join(tmp, "mosaic_wd")
+    argv = ["--dataset_dir", train_root, "--model", MODEL, "--batch_size", str(TRAIN_BATCH),
+            "--subdivisions", str(TRAIN_SUBDIV), "--num_epochs", "1", "--working_dir", wd,
+            "--print_freq", "1", "--no_val", "--mosaic", "--profile_steps", "1",
+            "--profile_start", "1"]
+    for fn in fns.values():
+        fn.launches = 0
+    timings = {}
+    t0 = time.perf_counter()
+    state = train.main(argv, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in fns.items()}
+    traces = glob.glob(os.path.join(wd, "logs", "complexer_yolo", "*.pt.trace.json"))
+    n = len(timings["step"])
+    # the micro-batches after the profiled one (index 1): loader wait, step and
+    # the print window's loss read (which waits for the card), per iteration
+    tail = timings["iter"][2:]
+    rate = TRAIN_BATCH * len(tail) / sum(tail) if tail else float("nan")
+    alone = mosaic_loader_ms(train_root)
+    print(f"[train7] cli.train --mosaic (fused native mosaic, host raster), {MODEL} @608 bf16 "
+          f"batch {TRAIN_BATCH}, subdivisions {TRAIN_SUBDIV}: {n} micro-batches, losses finite "
+          f"{bool(np.isfinite(timings['loss']).all())}; iteration ms "
+          + " ".join(f"{x * 1e3:.1f}" for x in timings["iter"])
+          + " (the first pays first-use costs, the second is profiled); loader wait ms "
+          + " ".join(f"{x * 1e3:.1f}" for x in timings["load"])
+          + f"; train images/s over micro-batches 3-{n} = {rate:.2f}; mosaic loader alone "
+          f"{alone:.2f} ms per micro-batch of {TRAIN_BATCH}; whole run {wall:.1f} s; "
+          f"launches {got}")
+    print(f"[train7] --profile_steps 1 --profile_start 1: trace files "
+          f"{[os.path.basename(t) for t in traces]} "
+          f"({sum(os.path.getsize(t) for t in traces) / 2 ** 20:.1f} MiB)")
+    if (n != MOSAIC_FRAMES // TRAIN_BATCH or not np.isfinite(timings["loss"]).all()
+            or any(got.values())):
+        raise AssertionError(f"mosaic train run: {n} steps, losses {timings['loss']}, "
+                             f"launches {got}")
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_steps left {len(traces)} trace files")
+    loader = ld.create_train_loader(train_root, TRAIN_BATCH, mosaic=True, seed=SEED)
+    loader.set_epoch(1)
+    loader.prefetch = 0
+    remat_check(state, next(iter(loader)), dev)
+    del state
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_test_cli(dev, tmp, root):
+    """Phase 7 (h): `cli.test.main` on the TEST_FRAMES synthetic test frames of
+    `root`, complex_yolov4 @608 bf16 batch 8, points raster, the launch
+    counts set to 0 just before: per batch the routes' stem and 3x3
+    launches. Returns the launches."""
+    import os
+
+    from complex_yolov4_tpu_torch.cli import test
+    from complex_yolov4_tpu_torch.models import zoo
+    from complex_yolov4_tpu_torch.models.network import kernel_routes
+
+    routes = kernel_routes(zoo.get_model_spec(MODEL), 608, torch.bfloat16)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    timings = {}
+    results = test.main(["--dataset_dir", root, "--model", MODEL, "--batch_size", str(BATCH),
+                         "--working_dir", os.path.join(tmp, "test_wd")], timings=timings)
+    got = {k: fn.launches for k, fn in fns.items()}
+    n_batches = len(results)
+    want = {k: v * n_batches for k, v in LAUNCHES_PATH1.items()}
+    finite = all(np.isfinite(d).all() for _, d, _ in results)
+    live = [int(m.sum()) for _, _, m in results]
+    per_frame = [t / BATCH * 1e3 for t in timings["infer"]]
+    warm = sum(timings["infer"][1:]) / (BATCH * (n_batches - 1)) * 1e3
+    print(f"[test] cli.test: {MODEL} @608 bf16, batch {BATCH}, {TEST_FRAMES} test frames, "
+          f"points raster: {n_batches} batches, launches {got} (per batch "
+          f"{LAUNCHES_PATH1}, routes {routes}); detections finite {finite}, live per batch "
+          f"{live}; ms/frame (inference, synced) cold {per_frame[0]:.2f} (the first batch), "
+          f"warm " + " ".join(f"{x:.2f}" for x in per_frame[1:])
+          + f"; frames/s cold {1e3 / per_frame[0]:.2f}, warm "
+          + " ".join(f"{1e3 / x:.2f}" for x in per_frame[1:])
+          + f"; warm over batches 2-{n_batches} ({BATCH * (n_batches - 1)} frames): "
+          f"{warm:.2f} ms/frame, {1e3 / warm:.2f} frames/s (inference only, the loader "
+          f"excluded)")
+    if (got != want or n_batches != TEST_FRAMES // BATCH or not finite
+            or sum(1 for r in routes.values() if r == "stem") != LAUNCHES_PATH1["stem_conv3x3"]):
+        raise AssertionError(f"cli.test: launches {got} != {want}, or non-finite detections")
+    return got
 
 
 def main() -> None:
@@ -1350,33 +1689,48 @@ def main() -> None:
     name, count, smi = phase_device()
     dev = torch.device("cuda", 0)
     # the first torch.optim optimizer (phase 6) imports torch._dynamo, seconds
-    # of host time: import it while nvcc builds
+    # of host time: import it while nvcc builds; g++ builds the native host
+    # rasterizer (phase 7) meanwhile too
     dynamo = threading.Thread(target=importlib.import_module, args=("torch._dynamo",),
                               daemon=True)
     dynamo.start()
-    phase_build()
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmp = tmp_dir.name
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(host_side, tmp)
+        phase_build()
+        roots = host.result()  # raises if g++ failed or a native check did
     dynamo.join()
-    lap("phases 1-2 (device, build)")
+    lap("phases 1-2 (device, build; phase 7 a, b, d beside it)")
     records = phase_kernels(dev)
+    lap("phase 3 (stem and 3x3 kernels)")
     records["fused_stage"] = phase_fused(dev)
+    lap("phase 3 (fused stage)")
     records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
-    lap("phase 3 (kernels)")
+    lap("phase 3 (int8 conv)")
     spec, path1, path2 = build_models(dev)
-    l1, _ = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
+    l1 = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
     layerwise_segments(path1, dev)
-    l2, _ = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
+    l2 = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
     if "--split" in sys.argv[1:]:
         phase_split("path1", path1, dev)
         phase_split("path2", path2, dev)
     del path1, path2
     torch.cuda.empty_cache()
-    lap("phase 4 (slice)")
-    runs = {"serve path 1": l1, "serve path 2": l2, **{
-        f"eval {k}": v for k, v in phase_evaluate(dev).items()}}
-    lap("phase 5 (evaluate)")
-    f32_runs = phase_train(dev)
-    lap("phase 6 (train)")
-    print(f"[time] phases 1-6: {time.perf_counter() - t_start:.1f} s")
+    lap("phase 4 (slice; phase 7 c: served with numpy and native COO)")
+    try:
+        runs = {"serve path 1": l1, "serve path 2": l2,
+                **{f"eval {k}": v for k, v in phase_evaluate(dev, roots["eval"]).items()}}
+        lap("phase 5 (evaluate)")
+        f32_runs = phase_train(dev, tmp, roots["train"])
+        lap("phase 6 (train)")
+        runs["train mosaic"] = phase_train_flags(dev, tmp, roots["mosaic"])
+        lap("phase 7 (e-g: mosaic training, profiler, remat)")
+        runs["test cli"] = phase_test_cli(dev, tmp, roots["test"])
+        lap("phase 7 (h: cli.test)")
+    finally:
+        tmp_dir.cleanup()
+    print(f"[time] phases 1-7: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     f32_of = {F32_ROW: "conv3x3_fused", INT8_F32_ROW: "int8_conv"}
     for k in KERNEL_NAMES + tuple(f32_of):
@@ -1396,7 +1750,7 @@ def main() -> None:
         kernels.append(row)
     print("[kernels] launches per run: " + "; ".join(
         f"{name} {run}" for name, run in {**runs, **f32_runs}.items()))
-    print("[kernels] launches: the bf16 runs of phases 4 and 5 together, and for "
+    print("[kernels] launches: the bf16 runs of phases 4, 5 and 7 together, and for "
           f"{F32_ROW} and {INT8_F32_ROW} the f32 runs of phase 6; ms, plain_ms, bound_ms and "
           "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
           "takes (3x3 in bf16 and f32: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and "

@@ -1,9 +1,10 @@
-"""Typed runtime configuration for the port's train and evaluation CLIs.
+"""Typed runtime configuration for the port's train, test and evaluation CLIs.
 
-A copy of `TrainConfig`, `EvalConfig`, `_add_fields`, `_build`,
-`parse_train_config` and `parse_eval_config` from
-`complex_yolov4_tpu/config/runtime.py` (reference:
-src/config/train_config.py:18-161, src/evaluate.py:67-105): the same flag
+A copy of `TrainConfig`, `TestConfig`, `EvalConfig`, `_add_fields`,
+`_build`, `parse_train_config`, `parse_test_config` and `parse_eval_config`
+from `complex_yolov4_tpu/config/runtime.py` (reference:
+src/config/train_config.py:18-161, src/test.py:33-88,
+src/evaluate.py:67-105): the same flag
 names and defaults, plus one field of the port's in each, `device`
 (``--device``, default ``cuda``; ``cpu`` runs the kernels' plain versions).
 `tests/test_torch_port_copies.py` holds the copy equal to the original.
@@ -125,6 +126,37 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class TestConfig:
+    saved_fn: str = "complexer_yolo"
+    working_dir: str = "./workdir"
+    dataset_dir: str = "./dataset/kitti"
+    model: str = "complex_yolov4"
+    cfgfile: Optional[str] = None
+    pretrained_path: Optional[str] = None
+    img_size: int = 608
+    batch_size: int = 1
+    num_samples: Optional[int] = None
+    conf_thresh: float = 0.5
+    nms_thresh: float = 0.5
+    show_image: bool = False
+    save_test_output: bool = False
+    output_format: str = "image"
+    output_video_fn: str = "out_complexer_yolo"
+    save_3d: bool = False                    # interactive HTML lidar viewer per frame
+    synthetic: bool = False
+    synthetic_frames: int = 4
+    compute_dtype: str = "bfloat16"
+    quantize: str = "none"                   # "none" | "int8" (PTQ, models/quantize.py)
+    calib_batches: int = 2                   # calibration batches for --quantize int8
+    host_raster: bool = False                # force host-side BEV rasterization
+    device: str = "cuda"                     # the port's: "cuda" or "cpu"
+
+    @property
+    def results_dir(self) -> str:
+        return os.path.join(self.working_dir, "results", self.saved_fn)
+
+
+@dataclasses.dataclass
 class EvalConfig:
     saved_fn: str = "complexer_yolo"
     working_dir: str = "./workdir"
@@ -179,6 +211,10 @@ def _build(cls, argv=None):
 
 def parse_train_config(argv=None) -> TrainConfig:
     return _build(TrainConfig, argv)
+
+
+def parse_test_config(argv=None) -> TestConfig:
+    return _build(TestConfig, argv)
 
 
 def parse_eval_config(argv=None) -> EvalConfig:

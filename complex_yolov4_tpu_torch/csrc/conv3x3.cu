@@ -98,6 +98,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The library build compiles this file once per part, in parallel, so that
+// nvcc's work on the eleven kernel instances splits three ways
+// (ops/_build.py PARTS): CYV4_PART 1 the stem (and cyv4_error_string), 2
+// the bf16 3x3 kernel, 3 its f32 instances. Without CYV4_PART every entry
+// point is compiled.
+#ifndef CYV4_PART
+#define CYV4_PART 0
+#endif
+#define CYV4_HAS_PART(p) (CYV4_PART == 0 || CYV4_PART == (p))
+
 namespace {
 
 enum Act { ACT_LINEAR = 0, ACT_MISH = 1, ACT_LEAKY = 2, ACT_RELU = 3 };
@@ -1028,6 +1038,7 @@ cudaError_t launch_conv(const T* x, const __nv_bfloat16* w, const float* bias, T
 // 64 (the main path); 16-byte cp.async where C_in is 128, with the stride
 // taken at run time: on wgmma, or on mma.sync where two rings do not fit
 // (stride 2).
+#if CYV4_HAS_PART(2)
 cudaError_t launch_conv_for(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
                             __nv_bfloat16* out, const ConvGeom& g, bool wgmma, int act,
                             cudaStream_t stream) {
@@ -1039,10 +1050,12 @@ cudaError_t launch_conv_for(const __nv_bfloat16* x, const __nv_bfloat16* w, cons
   return g.cp == 32 ? launch_conv<2, LOAD_TMA, 2>(x, w, bias, out, g, act, stream)
                     : launch_conv<2, LOAD_TMA, 4>(x, w, bias, out, g, act, stream);
 }
+#endif
 
 // The f32 instances, with the stride taken at run time: wgmma for C_in 32
 // and 64 (the main path), mma.sync for C_in 128 (off it), so that three
 // instances cover every shape.
+#if CYV4_HAS_PART(3)
 cudaError_t launch_conv_f32(const float* x, const __nv_bfloat16* w, const float* bias,
                             float* out, const ConvGeom& g, bool wgmma, int act,
                             cudaStream_t stream) {
@@ -1050,11 +1063,13 @@ cudaError_t launch_conv_f32(const float* x, const __nv_bfloat16* w, const float*
   return g.cp == 32 ? launch_conv<0, LOAD_F32, 2>(x, w, bias, out, g, act, stream)
                     : launch_conv<0, LOAD_F32, 4>(x, w, bias, out, g, act, stream);
 }
+#endif
 
 }  // namespace
 
 extern "C" {
 
+#if CYV4_HAS_PART(1)
 const char* cyv4_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -1073,10 +1088,12 @@ int cyv4_stem_conv3x3(const void* x, const void* w, const void* bias, void* out,
   if (C_in == 14) return (int)launch_stem<14>(xp, wp, bp, op, B, H, W, C_out, act, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
 // x (B, H, W, C_in) bf16 NHWC; w (9*C_in, C_out) bf16; bias (C_out,) f32;
 // out (B, H/stride, W/stride, C_out) bf16. stride 1 or 2, C_in 32, 64 or
 // 128, C_out % 8 == 0.
+#if CYV4_HAS_PART(2)
 int cyv4_conv3x3(const void* x, const void* w, const void* bias, void* out, int B,
                  int H, int W, int C_in, int C_out, int stride, int act, void* stream) {
   if ((stride != 1 && stride != 2) || (C_in != 32 && C_in != 64 && C_in != 128) ||
@@ -1093,10 +1110,12 @@ int cyv4_conv3x3(const void* x, const void* w, const void* bias, void* out, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)launch_conv_for(xp, wp, bp, op, g, wg, act, s);
 }
+#endif
 
 // The f32 contract of the same conv: x (B, H, W, C_in) f32 NHWC, rounded
 // to bf16 as it is loaded; w and bias as above; out (B, H/stride,
 // W/stride, C_out) f32 (the bias and activation in f32, not rounded).
+#if CYV4_HAS_PART(3)
 int cyv4_conv3x3_f32(const void* x, const void* w, const void* bias, void* out, int B,
                      int H, int W, int C_in, int C_out, int stride, int act, void* stream) {
   if ((stride != 1 && stride != 2) || (C_in != 32 && C_in != 64 && C_in != 128) ||
@@ -1110,5 +1129,6 @@ int cyv4_conv3x3_f32(const void* x, const void* w, const void* bias, void* out, 
                               static_cast<const float*>(bias), static_cast<float*>(out), g, wg,
                               act, static_cast<cudaStream_t>(stream));
 }
+#endif
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-"""Train and validation batches: seeded order, three layouts, a prefetch
-thread.
+"""Train, validation and test batches: seeded order, three layouts, a
+prefetch thread.
 
-Counterpart of `BatchIterator`, `create_train_loader` and
-`create_val_loader` of `complex_yolov4_tpu/data/loader.py` (reference:
-src/data_process/kitti_dataloader.py:22-61):
+Counterpart of `BatchIterator`, `create_train_loader`, `create_val_loader`
+and `create_test_loader` of `complex_yolov4_tpu/data/loader.py`
+(reference: src/data_process/kitti_dataloader.py:22-76):
 
 - a seeded per-epoch order (`shuffle`, `seed`, `set_epoch`); each sample's
   augmentations draw from `default_rng((seed, epoch, index, slot))`, so a
@@ -14,7 +14,13 @@ src/data_process/kitti_dataloader.py:22-61):
   `holes`, `hole_mask`, `size`), or flat COO cells for the device COO
   raster (`cells`, `cell_keys`, `cell_dens`, `batch`, `batch_cap`; val
   only); each with `targets` (B, T, 7), `target_mask` (B, T) and
-  `sample_ids`;
+  `sample_ids`; a deferred test batch carries the padded points and the
+  host-rastered `image` for drawing, and no targets;
+- host COO cells and host rasters come from the native C++ rasterizer
+  (`native/`) where it builds, else from the numpy functions it equals;
+- mosaic training (4 frames on a 2S x 2S canvas, resized back to S here,
+  or the fused native mosaic, already at S) rasters on the host and turns
+  the device raster and multiscale off, as the JAX loader does;
 - multiscale training: a new size from {S-96 .. S+96 step 32} every 10
   batches, seeded per epoch (reference: kitti_dataset.py:216-235); the
   device raster resizes, a host-rastered image is resized here by
@@ -25,7 +31,7 @@ src/data_process/kitti_dataloader.py:22-61):
   its end-of-data mark waits for room like a batch.
 
 The per-host shards and the batched COO layout (for a data mesh) wait for
-the data-parallel slice; mosaic for the native rasterizer.
+the data-parallel slice.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from .. import native
 from . import bev as bev_mod
 from .dataset import KittiDataset, _ProbeUnsupported
 from .transforms import default_aug_transforms, default_lidar_transforms
@@ -56,7 +63,18 @@ MAX_CELLS = 16384
 def resize_linear(img: np.ndarray, size: int) -> np.ndarray:
     """(H, W, C) f32 -> (size, size, C): bilinear with half-pixel centres
     and edge clamping, the sampling of cv2.resize(INTER_LINEAR) on f32
-    images (the JAX loader's multiscale resize)."""
+    images (the JAX loader's multiscale and mosaic resize), within 1.2e-7
+    of cv2's values in [0, 1]. At exactly 2:1 (a mosaic canvas) each output
+    is the two-tap expression of the fused native mosaic
+    (`bev_native.cpp::mosaic`: the two rows' horizontal halves, then their
+    vertical half), so that the numpy mosaic equals the native one bit for
+    bit."""
+    if img.shape[0] == img.shape[1] == 2 * size:
+        h = np.float32(0.5)
+        a0, a1 = img[0::2, 0::2], img[0::2, 1::2]
+        b0, b1 = img[1::2, 0::2], img[1::2, 1::2]
+        return ((a0 * h + a1 * h) * h + (b0 * h + b1 * h) * h).astype(np.float32)
+
     def taps(n_in: int):
         src = np.maximum((np.arange(size) + 0.5) * (n_in / size) - 0.5, 0.0)
         i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
@@ -68,6 +86,15 @@ def resize_linear(img: np.ndarray, size: int) -> np.ndarray:
     rows = img[y0] * (1.0 - fy)[:, None, None] + img[y1] * fy[:, None, None]
     out = rows[:, x0] * (1.0 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
     return out.astype(np.float32)
+
+
+def _aggregate(lidar: np.ndarray):
+    """Host COO cells of a raw cloud: (cells, keys) of
+    `bev.aggregate_bev_cells(bev.remove_points_outside(lidar))`, from the
+    native library where it builds (bit-identical)."""
+    if native.is_available():
+        return native.aggregate_cells(lidar)
+    return bev_mod.aggregate_bev_cells(bev_mod.remove_points_outside(lidar))
 
 
 class BatchIterator:
@@ -91,13 +118,15 @@ class BatchIterator:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.multiscale = multiscale
+        # mosaic samples are rastered on the host (their canvas resize is an
+        # image-space op) at the native size, as the JAX loader's
+        self.multiscale = multiscale and not dataset.mosaic
         # cutout holes a deferred batch carries per frame
         self.max_holes = max_holes
         # device_raster: compact padded points instead of images (the
         # `from_points` program rasters on the device); cells_raster on top
         # of it: host-aggregated COO cells (the `from_cells` program)
-        self.device_raster = device_raster
+        self.device_raster = device_raster and not dataset.mosaic
         self.cells_raster = cells_raster and device_raster
         # Per-frame COO cell capacity; None = derived from a workload sample
         # at first use (`_cells_per_frame_cap`)
@@ -211,9 +240,7 @@ class BatchIterator:
         worst = 1024
         for i in sample:
             lidar = self.dataset.get_lidar(self.dataset.sample_id_list[int(i)])
-            c, _ = bev_mod.aggregate_bev_cells(
-                bev_mod.remove_points_outside(lidar))
-            worst = max(worst, len(c))
+            worst = max(worst, len(_aggregate(lidar)[0]))
         self.cell_capacity = min(worst + worst // 8, MAX_CELLS)
         return self.cell_capacity
 
@@ -225,7 +252,7 @@ class BatchIterator:
         def load_one(index, j):
             _, (_, lidar), targets, mask = self.dataset.load_sample(
                 index, self._rng(index, j), defer_raster=True)
-            c, k = bev_mod.aggregate_bev_cells(bev_mod.remove_points_outside(lidar))
+            c, k = _aggregate(lidar)
             return c, k, targets, mask
 
         cells_l, keys_l, tgts, masks = zip(*self._map(pool, load_one, indices))
@@ -252,10 +279,35 @@ class BatchIterator:
                 [self.dataset.sample_id_list[int(i)] for i in indices], np.int64),
         }
 
+    def _make_batch_deferred_test(self, indices: np.ndarray, pool) -> Dict[str, np.ndarray]:
+        """Test-mode deferred batch: padded points for the `from_points`
+        inference program, plus the host-rastered BEV image for drawing."""
+        def load_one(index, j):
+            lidar = self.dataset.get_lidar(self.dataset.sample_id_list[index])
+            cropped = bev_mod.remove_points_outside(lidar)
+            pts, msk = bev_mod.pad_points(cropped, MAX_POINTS)
+            img = (native.rasterize_points(lidar) if native.is_available()
+                   else bev_mod.make_bev_map(cropped))
+            return pts, msk, img
+
+        pts, msk, imgs = zip(*self._map(pool, load_one, indices))
+        b = len(indices)
+        return {
+            "points": np.stack(pts), "point_mask": np.stack(msk),
+            "flip": np.zeros((b,), np.float32),
+            "holes": np.zeros((b, 1, 5), np.float32),
+            "hole_mask": np.zeros((b, 1), np.float32),
+            "image": np.stack(imgs).astype(np.float32),
+            "sample_ids": np.asarray(
+                [self.dataset.sample_id_list[int(i)] for i in indices], np.int64),
+        }
+
     def _make_batch(self, indices: np.ndarray, pool, size: int) -> Dict[str, np.ndarray]:
-        if self.device_raster and not self.dataset.is_test:
-            if self.cells_raster:
+        if self.device_raster:
+            if self.cells_raster and not self.dataset.is_test:
                 return self._make_batch_deferred_cells(indices, pool)
+            if self.dataset.is_test:
+                return self._make_batch_deferred_test(indices, pool)
             batch = self._make_batch_deferred(indices, pool, size)
             if batch is not None:
                 return batch
@@ -379,21 +431,36 @@ def create_val_loader(dataset_dir: str, batch_size: int, *,
 def create_train_loader(dataset_dir: str, batch_size: int, *,
                         num_samples: Optional[int] = None,
                         multiscale: bool = False, mosaic: bool = False,
-                        seed: int = 2020,
+                        random_padding: bool = False, seed: int = 2020,
                         hflip_prob: float = 0.5, cutout_prob: float = 0.0,
                         cutout_nholes: int = 1, cutout_ratio: float = 0.3,
                         cutout_fill_value: float = 0.0,
                         device_raster: bool = False) -> BatchIterator:
     """Training pipeline with the reference augmentation recipe, shuffled per
-    epoch, the tail dropped (reference: kitti_dataloader.py:22-47); mosaic
-    raises (not ported yet)."""
+    epoch, the tail dropped (reference: kitti_dataloader.py:22-47). Mosaic
+    samples are rastered on the host (the fused native mosaic where it
+    builds), so `mosaic` turns `device_raster` and `multiscale` off."""
     ds = KittiDataset(
         dataset_dir, mode="train",
         lidar_transforms=default_lidar_transforms(),
         aug_transforms=default_aug_transforms(
             hflip_prob, cutout_prob, cutout_nholes, cutout_ratio, cutout_fill_value),
-        num_samples=num_samples, mosaic=mosaic,
+        num_samples=num_samples, mosaic=mosaic, random_padding=random_padding,
     )
     return BatchIterator(ds, batch_size, shuffle=True, drop_last=True, multiscale=multiscale,
                          seed=seed, device_raster=device_raster,
                          max_holes=max(cutout_nholes, 1))
+
+
+def create_test_loader(dataset_dir: str, batch_size: int, *,
+                       num_samples: Optional[int] = None,
+                       device_raster: bool = False) -> BatchIterator:
+    """Test/demo pipeline: BEV only, no targets, the tail batch kept, no
+    prefetch thread (reference: kitti_dataloader.py:64-76).
+
+    device_raster: also emit compact padded points so inference can raster
+    on the device (`from_points`); the host image stays in the batch for
+    drawing."""
+    ds = KittiDataset(dataset_dir, mode="test", num_samples=num_samples)
+    return BatchIterator(ds, batch_size, shuffle=False, drop_last=False,
+                         prefetch=0, device_raster=device_raster)

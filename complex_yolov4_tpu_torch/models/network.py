@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv3x3 as conv3x3_mod
 from ..ops import fused_stage as fused_mod
@@ -424,7 +425,8 @@ class TrainDarknet(nn.Module):
                                                          layer.batch_normalize))
         self._last_use = Darknet._liveness(spec)
 
-    def _conv(self, i: int, layer: ConvSpec, h: torch.Tensor) -> torch.Tensor:
+    def _conv(self, i: int, layer: ConvSpec, h: torch.Tensor,
+              update_stats: bool = True) -> torch.Tensor:
         cd = self.compute_dtype
         p = getattr(self, f"layer{i}")
         pad = (layer.size - 1) // 2 if layer.pad else 0
@@ -443,29 +445,53 @@ class TrainDarknet(nn.Module):
                 inv = torch.rsqrt(var + BN_EPS) * p.bn_scale
                 h = h * inv[None, :, None, None] + (p.bn_bias - mean * inv)[None, :, None, None]
             n = h.shape[0] * h.shape[2] * h.shape[3]
-            with torch.no_grad():
-                p.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
-                p.var.mul_(1 - BN_MOMENTUM).add_(
-                    BN_MOMENTUM * var.detach() * (n / max(n - 1, 1)))
+            if update_stats:
+                with torch.no_grad():
+                    p.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())
+                    p.var.mul_(1 - BN_MOMENTUM).add_(
+                        BN_MOMENTUM * var.detach() * (n / max(n - 1, 1)))
         else:
             h = h + p.b.to(h.dtype)[None, :, None, None]
         return act(h, layer.activation).to(cd)
 
-    def forward(self, x: torch.Tensor) -> List[dict]:
+    def _conv_remat(self, i: int, layer: ConvSpec, h: torch.Tensor) -> torch.Tensor:
+        """`_conv` under activation checkpointing: only its input is kept
+        for the backward, which runs conv, BN and activation again. The
+        recomputation leaves the running statistics alone, so they move
+        once per step, as without remat."""
+        first = [True]
+
+        def run(x):
+            update, first[0] = first[0], False
+            return self._conv(i, layer, x, update_stats=update)
+
+        return checkpoint(run, h, use_reentrant=False)
+
+    def forward(self, x: torch.Tensor, remat: bool = False) -> List[dict]:
         """(B, C, S, S) f32 raster -> the per-head decode dicts of
         `decode_head_raw` (what `losses.network_loss` reads). In train mode
         BN takes the batch statistics and updates the running ones in
         place; in eval mode (`.eval()`, the JAX `train=False`) it takes the
         running statistics. f32 compute on CUDA needs TF32 off around the
         forward and the backward: the train and eval steps hold that scope
-        (`precision_scope`), not the forward."""
+        (`precision_scope`), not the forward.
+
+        remat: activation checkpointing (the JAX step's `remat`, which wraps
+        the whole forward in `jax.checkpoint`): each conv with its BN and
+        activation keeps only its input for the backward and is run again
+        there (`_conv_remat`), so the saved activations shrink to one per
+        conv while the values, gradients and running statistics stay those
+        of the plain forward. Checkpointing the whole forward at once would
+        save little in eager PyTorch: its recomputation would hold every
+        activation again at the start of the backward."""
         img_size = x.shape[-1]
+        remat = remat and self.training and torch.is_grad_enabled()
         outputs: List[Optional[torch.Tensor]] = []
         heads = []
         h = x
         for i, layer in enumerate(self.spec.layers):
             if isinstance(layer, ConvSpec):
-                h = self._conv(i, layer, h)
+                h = self._conv_remat(i, layer, h) if remat else self._conv(i, layer, h)
             elif isinstance(layer, YoloSpec):
                 heads.append(decode_head_raw(outputs[i - 1], layer, img_size))
                 h = outputs[i - 1]

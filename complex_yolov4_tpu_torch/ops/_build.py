@@ -23,6 +23,9 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# sources compiled once per part (-DCYV4_PART=k), each part by its own nvcc,
+# so that the instances of one large source build in parallel
+PARTS = {"conv3x3.cu": (1, 2, 3)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -50,8 +53,15 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _units():
+    """(source, extra nvcc flags, object tag) of each nvcc process."""
+    return [(src, (f"-DCYV4_PART={k}",) if k else (), f"{src.stem}.part{k}" if k else src.stem)
+            for src in _sources() for k in PARTS.get(src.name, (0,))]
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(repr(sorted(PARTS.items())).encode())
     for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -60,7 +70,8 @@ def library_path() -> Path:
 
 def build() -> str:
     """Compile the kernels if the library for the current sources is
-    missing: one nvcc per source, all started together, then one link.
+    missing: one nvcc per source (per part, `PARTS`), all started together,
+    then one link.
     Returns nvcc's log (its -Xptxas -v register and shared-memory lines),
     kept beside the library for later processes."""
     so = library_path()
@@ -70,19 +81,20 @@ def build() -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
+    units = _units()
     objs, procs = [], []
-    for src in _sources():
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+    for src, defines, name in units:
+        obj = BUILD_DIR / f"{tag}.{name}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     texts, failed = [], []
-    for src, proc in zip(_sources(), procs):
+    for (src, defines, name), proc in zip(units, procs):
         out, _ = proc.communicate()
-        texts.append(f"== {src.name}\n{out}")
+        texts.append(f"== {src.name} {' '.join(defines)}\n{out}")
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(name)
     text = "".join(texts)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{text}")

@@ -10,7 +10,8 @@ and every k-th call steps the optimizer and zeroes them (the JAX package's
 optax `MultiSteps` with its mean rescaled to the reference's sum). The
 loss and metrics stay on the device; the caller reads them when it wants
 them, as the JAX CLI does once per print window. f32 compute runs with TF32
-off (`network.precision_scope`).
+off (`network.precision_scope`). `remat` checkpoints the activations of
+the forward (`TrainDarknet.forward`), as the JAX step's `remat` does.
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ def batch_images(batch: Dict, device: torch.device, img_size: int = 0) -> torch.
     return img.permute(0, 3, 1, 2)
 
 
-def make_train_step(*, use_giou_loss: bool = False, subdivisions: int = 1
-                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_train_step(*, use_giou_loss: bool = False, subdivisions: int = 1,
+                    remat: bool = False) -> Callable[..., Dict[str, torch.Tensor]]:
     """-> step(state, batch, lr, img_size=0, want_metrics=True) -> metrics.
 
     `batch`: a loader batch (deferred points or images, with `targets` and
@@ -74,7 +75,7 @@ def make_train_step(*, use_giou_loss: bool = False, subdivisions: int = 1
         tmask = torch.as_tensor(batch["target_mask"], dtype=torch.float32, device=dev)
         model.train()
         with precision_scope(model.compute_dtype, dev):
-            heads = model(images)
+            heads = model(images, remat=remat)
             loss, head_metrics = network_loss(model.spec, heads, targets, tmask,
                                               use_giou_loss=use_giou_loss,
                                               want_metrics=want_metrics)

@@ -3,12 +3,15 @@
 complex_yolov4_tpu_torch carries copies of the pure-Python / numpy pieces
 of the serving and evaluation paths (layer IR, model zoo, darknet cfg, KITTI
 constants and parsing, frame transforms and augmentations, targets,
-synthetic scenes and trees, host rasters, the train and eval CLI configs,
-the dataset and loader, the LR schedules, the logger and meters) so
-that it never imports JAX; each copy is held here to the JAX package's
-original: source copies by their syntax trees (docstrings aside), the rest
-by their outputs, bit for bit. Also: the port's kernel routing at 608 and
-its import hygiene (no jax, no JAX package, no cv2).
+synthetic scenes and trees, host rasters, the train, test and eval CLI
+configs, the dataset with its mosaic and the loader, the LR schedules, the
+logger and meters, the visualization and the HTML viewer, and the native
+rasterizer's C++ source) so that it never imports JAX; each copy is held
+here to the JAX package's original: source copies by their syntax trees
+(docstrings aside, and the port's `import cv2` inside the functions that
+draw, where the original imports it at the top), the C++ source byte for
+byte, the rest by their outputs, bit for bit. Also: the port's kernel
+routing at 608 and its import hygiene (no jax, no JAX package, no cv2).
 """
 
 import ast
@@ -39,6 +42,8 @@ from complex_yolov4_tpu.models import zoo as jzoo
 from complex_yolov4_tpu.train import schedules as jsched
 from complex_yolov4_tpu.utils import logger as jlog
 from complex_yolov4_tpu.utils import meters as jmeters
+from complex_yolov4_tpu.utils import viewer_html as jviewer
+from complex_yolov4_tpu.utils import visualization as jviz
 from complex_yolov4_tpu_torch.config import kitti as tcnf
 from complex_yolov4_tpu_torch.config import runtime as trt
 from complex_yolov4_tpu_torch.data import bev as tbev
@@ -55,14 +60,24 @@ from complex_yolov4_tpu_torch.models.network import kernel_routes
 from complex_yolov4_tpu_torch.train import schedules as tsched
 from complex_yolov4_tpu_torch.utils import logger as tlog
 from complex_yolov4_tpu_torch.utils import meters as tmeters
+from complex_yolov4_tpu_torch.utils import viewer_html as tviewer
+from complex_yolov4_tpu_torch.utils import visualization as tviz
 
 REPO = Path(__file__).resolve().parent.parent
 
 
+def _is_cv2_import(node) -> bool:
+    return isinstance(node, ast.Import) and [a.name for a in node.names] == ["cv2"]
+
+
 def _top_level(module):
     """{name: syntax-tree dump} of a module's top-level functions, classes
-    and assignments, docstrings dropped."""
+    and assignments, docstrings and function-level `import cv2` dropped
+    (with the methods of each class under "Class.method" too)."""
     tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef):
+            node.body = [n for n in node.body if not _is_cv2_import(n)] or [ast.Pass()]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) and body
@@ -73,6 +88,10 @@ def _top_level(module):
     for node in tree.body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             out[node.name] = ast.dump(node)
+        if isinstance(node, ast.ClassDef):
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    out[f"{node.name}.{item.name}"] = ast.dump(item)
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = node.targets if isinstance(node, ast.Assign) else [node.target]
             for tgt in targets:
@@ -85,7 +104,7 @@ def _top_level(module):
 SOURCE_COPIES = {
     "config/kitti": (jcnf, tcnf, None),
     "config/runtime": (jrt, trt, ("_add_fields", "_build", "parse_eval_config",
-                                  "parse_train_config")),
+                                  "parse_train_config", "parse_test_config")),
     "data/kitti": (jkitti, tkitti, None),
     "data/transforms": (jtf, ttf, ("_expand44", "camera_to_lidar_points",
                                    "lidar_to_camera_points", "camera_to_lidar_box",
@@ -93,11 +112,18 @@ SOURCE_COPIES = {
                                    "Compose", "OneOf", "RandomRotation", "RandomScaling",
                                    "HorizontalFlip", "Cutout", "default_lidar_transforms",
                                    "default_aug_transforms")),
-    "data/dataset": (jds, tds, ("_ProbeUnsupported", "_AugProbe")),
+    "data/dataset": (jds, tds, ("_ProbeUnsupported", "_AugProbe")
+                     + tuple(f"KittiDataset.{m}" for m in (
+                         "__len__", "get_lidar", "get_label", "get_calib", "get_image_path",
+                         "load_bev_only", "load_sample", "load_mosaic", "_load_mosaic_native",
+                         "_load_mosaic_python", "get_item", "_remove_invalid_idx"))),
+    "data/loader": (jloader, tloader, ("_MULTISCALE_EVERY", "MAX_POINTS", "MAX_CELLS",
+                                       "create_test_loader")),
     "train/schedules": (jsched, tsched, ("multi_step_factor", "cosine_factor", "make_lr_fn")),
     "utils/logger": (jlog, tlog, None),
     "utils/meters": (jmeters, tmeters, ("AverageMeter", "ProgressMeter")),
-    "data/targets": (jtgt, ttgt, ("MAX_TARGETS", "build_yolo_targets")),
+    "data/targets": (jtgt, ttgt, ("MAX_TARGETS", "build_yolo_targets", "_CLASS_HEIGHT",
+                                  "_FIXED_Z", "inverse_yolo_targets")),
     "data/synthetic": (jsyn, tsyn, ("_CLASS_DIMS", "_CLASS_NAMES", "_GROUND_Z",
                                     "_lidar_ground", "sample_scene",
                                     "scene_to_kitti_objects", "generate_kitti_dataset",
@@ -107,6 +133,8 @@ SOURCE_COPIES = {
                               "make_bev_map", "pad_points", "pack_points_flat",
                               "aggregate_bev_cells", "density_from_keys")),
     "models/darknet_cfg": (jcfg, tcfg, None),
+    "utils/viewer_html": (jviewer, tviewer, None),
+    "utils/visualization": (jviz, tviz, None),
 }
 
 
@@ -132,6 +160,28 @@ def test_eval_config_fields():
             "--cells_raster", "--quantize", "int8", "--conf_thresh", "0.25"]
     j, t = jrt.parse_eval_config(argv), trt.parse_eval_config(argv + ["--device", "cpu"])
     assert dataclasses.asdict(t) == dict(dataclasses.asdict(j), device="cpu")
+
+
+def test_native_source_identical():
+    """The port's native rasterizer is the JAX package's C++ source, byte for
+    byte (the port builds it with its own flags, into its own build
+    directory)."""
+    src = "native/bev_native.cpp"
+    assert ((REPO / "complex_yolov4_tpu_torch" / src).read_bytes()
+            == (REPO / "complex_yolov4_tpu" / src).read_bytes())
+
+
+def test_test_config_fields():
+    """The port's TestConfig: the JAX package's fields and defaults, plus
+    `device`; the parser gives the same values for the same flags."""
+    jf = [(f.name, f.default) for f in dataclasses.fields(jrt.TestConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(trt.TestConfig)]
+    assert tf == jf + [("device", "cuda")]
+    argv = ["--model", "complex_yolov4_tiny", "--batch_size", "3", "--num_samples", "5",
+            "--save_test_output", "--output_format", "video", "--save_3d"]
+    j, t = jrt.parse_test_config(argv), trt.parse_test_config(argv + ["--device", "cpu"])
+    assert dataclasses.asdict(t) == dict(dataclasses.asdict(j), device="cpu")
+    assert t.results_dir == j.results_dir
 
 
 def test_train_config_fields():

@@ -14,7 +14,9 @@ loaders with the same seed and epoch:
   (`prefetch = 0`: its end-of-data mark can be lost, ROADMAP.md §3); the
   multiscale host resize (`resize_linear`, numpy) against the JAX
   loader's cv2.resize within 1e-5 (one f32 rounding per tap);
-- mosaic raises a ValueError naming the ROADMAP item.
+- a mosaic train loader turns the device raster and multiscale off, as
+  the JAX loader does, and yields host-rastered 608 images (its batches
+  against the JAX loader's: test_torch_port_mosaic.py).
 """
 
 import numpy as np
@@ -104,8 +106,15 @@ def test_resize_linear_matches_cv2():
 
 
 def test_mosaic_raises(root):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tloader.create_train_loader(root, 2, mosaic=True)
+    """Mosaic no longer raises: the loader rasters its samples on the host
+    at the native size (no device raster, no multiscale)."""
+    loader = tloader.create_train_loader(root, 2, mosaic=True, multiscale=True,
+                                         device_raster=True, num_samples=2)
+    assert not loader.device_raster and not loader.multiscale
+    loader.prefetch = 0
+    batch = next(iter(loader))
+    assert batch["image"].shape == (2, 608, 608, 3) and batch["image"].dtype == np.float32
+    assert batch["targets"].shape == (2, 64, 7) and "points" not in batch
 
 
 def test_deferred_fallback_warns(root, monkeypatch):
