@@ -134,13 +134,56 @@ fallback):
    set to 0 just before: stem 1 and 3x3 5 per batch, detections finite,
    inference ms per frame and frames/s of the first batch (cold) and of
    the 5 after it (warm).
+8. data parallel (`complex_yolov4_tpu_torch.parallel`: one process per
+   device) — one card holds every rank here: NCCL refuses two ranks on one
+   device, so the NCCL group is checked at world size 1 and the two-rank
+   arithmetic over gloo, which carries CUDA tensors through the host (the
+   backend chosen in the library call, never as a fallback).
+   (a) an NCCL group of one rank: complex_yolov4 @608, f32 with TF32 off,
+   the global batch of 4 below, one SGD step under `parallel.wrap_ddp`
+   against the plain step from the same state: the loss and the running
+   BN statistics within 1e-4 (the CPU test's bounds,
+   tests/test_torch_port_ddp.py); the parameters' step (relative L2 over
+   all leaves) and max |param diff| within 2x the plain step's own noise
+   floor, taken in the same run by the plain step on its input scaled by
+   1 + 1e-7, 1 - 1e-7 and 1 + 1e-6 (at 608 this random net's gradient
+   moves by percents under such rounding: DDP_FLOOR_MARGIN);
+   (b) two processes sharing the card over gloo (`--ddp-rank`, started
+   beside nvcc in phase 2 at the lowest CPU priority, where they join their
+   group, build the weights and import what the optimizer needs, then wait
+   for phase 8; each wait
+   bounded, the processes killed at a failure or their time limit; (a)
+   waits until (b) is done, so that (b)'s ms are the pair's own),
+   complex_yolov4 @608 full width, batch 2
+   per rank of a global batch of 4 uniform rasters with 3 targets each,
+   one SGD step against one process on the batch of 4: f32 (TF32 off) at
+   (a)'s bounds and floor; bf16 with the loss within 1e-2 relative, the BN
+   statistics no further (relative L2 over all leaves) from the 1-process
+   bf16 step's than those lie from the f32 step's, and the step's L2 norm
+   within 1.5x of the 1-process bf16 step's (the bf16 step itself is
+   rounding noise at 608: DDP_BF16_NORM); each
+   rank's step ms (the compared step and 2 more, synced) and peak memory;
+   (c) inside phase 4: path 1 over `make_inference_fn(devices=[cuda:0,
+   cuda:0])`, 2 requests of 8 in the batched COO layout split 4 + 4, the
+   launch counts set to 0 just before: stem 1 and 3x3 5 per replica per
+   request, detections equal bit for bit to the one-device function's on
+   each replica's 4 frames (those of the one-device batch of 8 printed
+   beside them);
+   (d) in the same two processes, `cli.train.main --num_processes 2` over
+   their gloo group on 8 frames of phase 6's tree (complex_yolov4 @608
+   bf16, batch 2 per rank, --subdivisions 2: 2 micro-batches per rank),
+   the counts set to 0 just before: equal steps on both ranks, the lead's
+   f32 validation of the 24 val frames through the 3x3 kernel's f32
+   instance (5 launches per batch of 2), no launch on rank 1, one log and
+   one checkpoint, the lead's.
 
 Each phase prints its wall time on a `[time]` line.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record (launches: the sum over the served, evaluated
-and tested runs of phases 4, 5 and 7, the f32 rows' over phase 6's f32
-runs), and the line before that nvidia-smi's name and power limit.
+and tested runs of phases 4, 5, 7 and 8 (c), the f32 rows' over the f32
+runs of phases 6 and 8 (d)), and the line before that nvidia-smi's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -217,6 +260,48 @@ REMAT_TIMED_STEPS = 6
 EVAL_CONFIGS = (("points", (), False), ("cells", ("--cells_raster",), False),
                 ("host", ("--host_raster",), False),
                 ("int8", ("--quantize", "int8", "--calib_batches", "1"), True))
+# phase 8: data parallel. Frames per rank and ranks of the gloo pair that
+# shares the card, the SGD learning rate of the compared step, the synced
+# steps timed after it, and the bound on every child process and collective
+DDP_PER_RANK, DDP_RANKS, DDP_LR, DDP_TIMED_STEPS = 2, 2, 1e-2, 2
+DDP_TIMEOUT_S = 600
+# f32 (TF32 off): the loss and the running BN statistics (relative to each
+# leaf's largest |.|) at the CPU test's bounds (tests/test_torch_port_ddp.py).
+# The parameters' step is held to the noise floor of the 1-process step
+# itself: at 608 with seed-0 weights, the same step on its input scaled by
+# 1 +- 1e-7 or 1 + 1e-6 (DDP_PROBES) moves the step by about 5% in relative
+# L2 and the parameters by up to about 0.3 (phase 8 (a) prints it; on an
+# NVIDIA H100 80GB HBM3 at 700 W: 0.0484 and 0.33), while the loss and the
+# statistics agree to 1e-5. The gradient is discontinuous in the forward's
+# rounding: a leaky-ReLU input that changes sign, or a maxpool argmax that
+# moves, sends a cell's gradient another way, and with a few targets a
+# batch the gradient of a leaf gathers at a few cells. So the CPU test's
+# 5e-4 on the parameters cannot hold here for any two correct
+# implementations. A data-parallel step must lie within DDP_FLOOR_MARGIN
+# times the largest distance of the probes (L2 of the step and max |param
+# diff|), measured in the same run. Planted faults (ddp_fault_probe.py, on
+# an NVIDIA H100 80GB HBM3 at 700 W, against a bound of 0.097 and 0.66) read
+# step L2 1.4 with BN on the rank's own batch, 0.34 (params 4.2) without
+# BN's backward all-reduce, 0.50 with an unscaled loss and 1.0 with
+# per-rank loss counts; the step also moves only 0.05 for an input scaled
+# by 1 + 1e-3 or 1 + 1e-2, so the floor is not a bf16-sized tolerance.
+DDP_LOSS_REL, DDP_BN_REL = 1e-4, 1e-4
+DDP_PROBES, DDP_FLOOR_MARGIN = (1 + 1e-7, 1 - 1e-7, 1 + 1e-6), 2.0
+# bf16: the loss within 1e-2 relative and the running statistics (relative
+# L2 over all leaves) no further from the 1-process bf16 step's than those
+# lie from the 1-process f32 step's. The bf16 step itself is rounding noise
+# at 608 (phase 8 (b) prints it; on an NVIDIA H100 80GB HBM3 at 700 W it
+# lay 1.41 in relative L2 from the 1-process bf16 step and 1.41 from f32:
+# uncorrelated, of equal size; the bf16 step on its input scaled by 1.01
+# moves 1.37, where f32 moves 0.056), so it is held by its size only: its
+# L2 norm within a factor DDP_BF16_NORM of the 1-process bf16 step's (an
+# unscaled loss halves it, per-rank normalisers double it). A BN backward
+# without its all-reduce passes these bf16 checks (ddp_fault_probe.py): the
+# f32 check, which runs the same `bn_train`, is the one that sees it.
+DDP_BF16_LOSS_REL, DDP_BF16_NORM = 1e-2, 1.5
+# phase 8 (d): train frames of the two-process cli.train (2 micro-batches of
+# 2 per rank, one optimizer step); the lead validates phase 6's 24 val frames
+DDP_CLI_FRAMES = 8
 SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            F32_ROW: "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
@@ -1677,6 +1762,473 @@ def phase_test_cli(dev, tmp, root):
     return got
 
 
+def ddp_global_batch():
+    """Phase 8's global batch: DDP_RANKS * DDP_PER_RANK uniform 608 rasters
+    with 3 targets each, from a numpy seed; rank r's shard is frames
+    [r * DDP_PER_RANK, (r + 1) * DDP_PER_RANK)."""
+    rng = np.random.default_rng(SEED + 8)
+    b = DDP_RANKS * DDP_PER_RANK
+    batch = {"image": rng.uniform(size=(b, 608, 608, 3)).astype(np.float32),
+             "targets": np.zeros((b, 50, 7), np.float32),
+             "target_mask": np.zeros((b, 50), np.float32)}
+    for f in range(b):
+        for t in range(3):
+            yaw = rng.uniform(-np.pi, np.pi)
+            batch["targets"][f, t] = [t, rng.uniform(0.1, 0.9), rng.uniform(0.1, 0.9),
+                                      rng.uniform(0.02, 0.1), rng.uniform(0.05, 0.2),
+                                      np.sin(yaw), np.cos(yaw)]
+            batch["target_mask"][f, t] = 1
+    return batch
+
+
+def ddp_shard(batch, rank):
+    return {k: v[rank * DDP_PER_RANK:(rank + 1) * DDP_PER_RANK] for k, v in batch.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def ddp_init(dev):
+    """The seed-0 complex_yolov4 train state dict on `dev`, built once on the
+    host (its numpy init and conversion take about a second) and copied."""
+    from complex_yolov4_tpu_torch.models import weights, zoo
+
+    if dev.type != "cpu":
+        return {k: v.to(dev) for k, v in ddp_init(torch.device("cpu")).items()}
+    spec = zoo.get_model_spec(MODEL)
+    params, bn_state = weights.init_params_np(spec, SEED)
+    return weights.to_train_state(spec, params, bn_state)
+
+
+def ddp_state(dtype, dev):
+    """A fresh complex_yolov4 train state from the seed-0 weights, SGD (the
+    weights copied from the host, so that the card holds no cached copy)."""
+    from complex_yolov4_tpu_torch import train as T
+    from complex_yolov4_tpu_torch.models import zoo
+    from complex_yolov4_tpu_torch.models.network import TrainDarknet
+
+    model = TrainDarknet(zoo.get_model_spec(MODEL), compute_dtype=dtype).to(dev)
+    model.load_state_dict(ddp_init(torch.device("cpu")))
+    return T.TrainState(model, T.create_optimizer(model, optimizer_type="sgd"))
+
+
+def step_distance(got, ref, init):
+    """got/ref/init: state dicts on the card. -> {param_abs: max |got - ref|
+    over the parameters, step_rel: the largest per-leaf max |step - ref
+    step| / max |ref step|, bn_rel: the largest per-leaf max |diff| / max
+    |ref| of the running statistics, step_l2 / bn_l2: the same as relative
+    L2 distances over all leaves, norm_ratio: |step| / |ref step| in L2}."""
+    out = {"param_abs": 0.0, "step_rel": 0.0, "bn_rel": 0.0}
+    sq = {"step": [0.0, 0.0], "bn": [0.0, 0.0]}
+    norm2 = 0.0
+    for k, r in ref.items():
+        g = got[k].to(r.device, torch.float32)
+        r = r.float()
+        if k.endswith((".mean", ".var")):
+            out["bn_rel"] = max(out["bn_rel"], float((g - r).abs().max()
+                                                     / r.abs().max().clamp(min=1e-12)))
+            sq["bn"][0] += float(((g - r) ** 2).sum())
+            sq["bn"][1] += float((r ** 2).sum())
+            continue
+        d_ref, d = r - init[k].float(), g - init[k].float()
+        out["param_abs"] = max(out["param_abs"], float((g - r).abs().max()))
+        out["step_rel"] = max(out["step_rel"], float((d - d_ref).abs().max()
+                                                     / d_ref.abs().max().clamp(min=1e-12)))
+        sq["step"][0] += float(((d - d_ref) ** 2).sum())
+        sq["step"][1] += float((d_ref ** 2).sum())
+        norm2 += float((d ** 2).sum())
+    for name, (num, den) in sq.items():
+        out[f"{name}_l2"] = (num / max(den, 1e-30)) ** 0.5
+    out["norm_ratio"] = (norm2 / max(sq["step"][1], 1e-30)) ** 0.5
+    return out
+
+
+def plain_step(batch, dtype, dev, scale=1.0):
+    """(loss, state dict on the card) of one SGD step of a fresh state on
+    `batch`, its images scaled by `scale`."""
+    from complex_yolov4_tpu_torch import train as T
+
+    state = ddp_state(dtype, dev)
+    b = dict(batch, image=(batch["image"] * np.float32(scale)).astype(np.float32))
+    loss = float(T.make_train_step()(state, b, DDP_LR)["loss"])
+    return loss, state.model.state_dict()
+
+
+def ddp_f32_ok(label, loss, sd, ref, floor, init):
+    """Print and judge an f32 data-parallel step (loss, state dict) against
+    the 1-process reference `ref` (loss, state dict) and its noise floor."""
+    d = step_distance(sd, ref[1], init)
+    loss_rel = abs(loss - ref[0]) / abs(ref[0])
+    ok = (loss_rel <= DDP_LOSS_REL and d["bn_rel"] <= DDP_BN_REL
+          and d["step_l2"] <= DDP_FLOOR_MARGIN * floor["step_l2"]
+          and d["param_abs"] <= DDP_FLOOR_MARGIN * floor["param_abs"])
+    print(f"[ddp] {label}: loss {loss:.7g} vs {ref[0]:.7g} (rel {loss_rel:.3g}, tol "
+          f"{DDP_LOSS_REL}); BN statistics max rel {d['bn_rel']:.3g} (tol {DDP_BN_REL}); step "
+          f"relative L2 {d['step_l2']:.3g}, params max abs diff {d['param_abs']:.3g} (tol "
+          f"{DDP_FLOOR_MARGIN:g} x the floor {floor['step_l2']:.3g}, {floor['param_abs']:.3g}); "
+          f"step max rel per leaf {d['step_rel']:.3g} (floor {floor['step_rel']:.3g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def ddp_bf16_ok(label, loss, sd, ref16, ref32, init):
+    """Print and judge a bf16 data-parallel step (loss, state dict) against
+    the 1-process bf16 step `ref16`, with the 1-process f32 step `ref32` as
+    the yardstick of the BN statistics (DDP_BF16_LOSS_REL, DDP_BF16_NORM)."""
+    bf = step_distance(sd, ref16[1], init)
+    yard = step_distance(ref16[1], ref32[1], init)
+    loss_rel = abs(loss - ref16[0]) / abs(ref16[0])
+    ok = (loss_rel <= DDP_BF16_LOSS_REL and bf["bn_l2"] <= yard["bn_l2"]
+          and 1 / DDP_BF16_NORM <= bf["norm_ratio"] <= DDP_BF16_NORM)
+    print(f"[ddp] {label}: loss {loss:.7g} vs {ref16[0]:.7g} (rel {loss_rel:.3g}, tol "
+          f"{DDP_BF16_LOSS_REL}); BN statistics relative L2 {bf['bn_l2']:.3g} (bound: 1-process "
+          f"bf16 vs f32 {yard['bn_l2']:.3g}); step norm / 1-process bf16 step norm "
+          f"{bf['norm_ratio']:.4g} (within {DDP_BF16_NORM:g}x; 1-process bf16 / f32 "
+          f"{yard['norm_ratio']:.4g}); relative L2 of the step {bf['step_l2']:.3g} (1-process "
+          f"bf16 vs f32 {yard['step_l2']:.3g}), max abs param diff {bf['param_abs']:.3g}, BN max "
+          f"rel {bf['bn_rel']:.3g} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_ddp_nccl(dev):
+    """Phase 8 (a): an NCCL group of one rank on the card; complex_yolov4 @608
+    f32 (TF32 off) on phase 8's global batch: the step under
+    `parallel.wrap_ddp` (BN and the loss's counts all-reduced over the
+    group, DDP's gradient all-reduce) against the plain step, from the same
+    state, and the plain step's noise floor (the largest distance of its
+    DDP_PROBES). Returns (reference, floor, initial state dict) for (b)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from complex_yolov4_tpu_torch import parallel
+    from complex_yolov4_tpu_torch import train as T
+
+    batch = ddp_global_batch()
+    init = ddp_init(dev)
+    ref = plain_step(batch, torch.float32, dev)
+    probes = [step_distance(plain_step(batch, torch.float32, dev, x)[1], ref[1], init)
+              for x in DDP_PROBES]
+    floor = {k: max(p[k] for p in probes) for k in probes[0]}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S),
+                            device_id=dev)
+    try:
+        wrapped = ddp_state(torch.float32, dev)
+        wrapped.ddp = parallel.wrap_ddp(wrapped.model, dev)
+        loss = float(T.make_train_step()(wrapped, batch, DDP_LR)["loss"])
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    ok = ddp_f32_ok(f"(a) {backend} group of 1 rank, {MODEL} @608 f32 (TF32 off) batch "
+                    f"{DDP_RANKS * DDP_PER_RANK}, the DDP step vs the plain step", loss,
+                    wrapped.model.state_dict(), ref, floor, init)
+    if not ok or backend != "nccl":
+        raise AssertionError("phase 8 (a): the NCCL-wrapped step differs from the plain step")
+    del wrapped
+    torch.cuda.empty_cache()
+    return ref, floor, init
+
+
+def _wait_for_file(path: str, timeout_s: float) -> str:
+    """The contents of `path` once it exists (polled), within `timeout_s`."""
+    import os
+
+    deadline = time.perf_counter() + timeout_s
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        return f.read()
+
+
+def _signal(path: str, text: str = "") -> None:
+    """Write `text` to `path` whole (a rename), for `_wait_for_file`."""
+    import os
+
+    with open(path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def ddp_rank(argv):
+    """One rank of phase 8's gloo pair, in a process of its own:
+    ``chip_smoke.py --ddp-rank RANK PORT OUT_DIR WORK_DIR``. It starts while
+    nvcc builds (phase 2), at the lowest CPU priority: it joins the gloo
+    group, builds the weights on the host and imports what the first
+    optimizer needs, then waits for
+    OUT_DIR/go (written at phase 8, after the phases that time the host;
+    it holds TRAIN_ROOT). (b) per dtype (f32, then bf16) a fresh
+    complex_yolov4 @608 under `parallel.wrap_ddp` takes the compared step on
+    its shard of `ddp_global_batch` (rank 0 saves its state and loss to
+    OUT_DIR), then DDP_TIMED_STEPS synced steps; each step's ms and the peak
+    memory are printed; rank 0 then writes OUT_DIR/b.done. (d)
+    `cli.train.main --num_processes 2` on DDP_CLI_FRAMES frames of
+    TRAIN_ROOT, in the same gloo group, with the lead's f32 validation; its
+    launch counts are printed. Every printed record is one JSON line after
+    "[ddp-rank] "."""
+    import os
+
+    from complex_yolov4_tpu_torch import parallel
+    from complex_yolov4_tpu_torch import train as T
+    from complex_yolov4_tpu_torch.cli import train
+
+    t_start = time.perf_counter()
+    rank, port, out_dir, wd = int(argv[0]), argv[1], argv[2], argv[3]
+    # the lowest CPU priority: the set-up below yields the host's cores to
+    # nvcc and to the phases that time the host; at phase 8 the main
+    # process only waits while (b) runs
+    os.nice(19)
+    # the first optimizer imports torch._dynamo (seconds of host time): import
+    # it while the group forms and the weights are built
+    dynamo = threading.Thread(target=importlib.import_module, args=("torch._dynamo",),
+                              daemon=True)
+    dynamo.start()
+    dev = torch.device("cuda", 0)
+    parallel.initialize_distributed(f"localhost:{port}", DDP_RANKS, rank, device=dev,
+                                    backend="gloo", timeout_s=DDP_TIMEOUT_S)
+    try:
+        shard = ddp_shard(ddp_global_batch(), rank)
+        ddp_init(torch.device("cpu"))
+        dynamo.join()
+        t_ready = time.perf_counter() - t_start
+        train_root = _wait_for_file(os.path.join(out_dir, "go"), DDP_TIMEOUT_S)
+        t_go = time.perf_counter()
+        for dtype in (torch.float32, torch.bfloat16):
+            state = ddp_state(dtype, dev)
+            state.ddp = parallel.wrap_ddp(state.model, dev)
+            step = T.make_train_step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = []
+            for i in range(1 + DDP_TIMED_STEPS):
+                t0 = time.perf_counter()
+                loss = float(step(state, shard, DDP_LR)["loss"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0 and rank == 0:
+                    torch.save({"loss": loss, "state": {k: v.cpu() for k, v in
+                                                        state.model.state_dict().items()}},
+                               os.path.join(out_dir, f"{str(dtype)[6:]}.pt"))
+            print("[ddp-rank] " + json.dumps({
+                "part": "b", "rank": rank, "dtype": str(dtype)[6:], "step_ms": ms,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                "ready_s": t_ready, "done_s": time.perf_counter() - t_go}), flush=True)
+            del state, step
+            torch.cuda.empty_cache()
+        if rank == 0:
+            _signal(os.path.join(out_dir, "b.done"))
+
+        fns = counters()
+        for fn in fns.values():
+            fn.launches = 0
+        timings = {}
+        state = train.main(
+            ["--dataset_dir", train_root, "--model", MODEL, "--batch_size", str(DDP_PER_RANK),
+             "--subdivisions", "2", "--num_epochs", "1", "--num_samples", str(DDP_CLI_FRAMES),
+             "--working_dir", wd, "--print_freq", "1", "--checkpoint_freq", "1",
+             "--conf_thresh", str(EVAL_CONF), "--num_processes", str(DDP_RANKS),
+             "--process_id", str(rank), "--coordinator_address", f"localhost:{port}"],
+            timings=timings)
+        torch.cuda.synchronize()
+        print("[ddp-rank] " + json.dumps({
+            "part": "d", "rank": rank, "launches": {k: fn.launches for k, fn in fns.items()},
+            "micro_batches": len(timings["step"]), "global_step": state.global_step,
+            "step_ms": [x * 1e3 for x in timings["step"]], "loss": timings["loss"],
+            "mAP": timings["mAP"], "val_s": timings["val"],
+            "done_s": time.perf_counter() - t_go}), flush=True)
+    finally:
+        parallel.destroy()
+
+
+def start_ddp_ranks(tmp):
+    """Start phase 8's gloo pair (`ddp_rank`): two processes on the one card,
+    each writing its output to OUT_DIR/rank<r>.log. -> (processes, OUT_DIR,
+    WORK_DIR)."""
+    import os
+    import socket
+
+    out_dir = os.path.join(tmp, "ddp_out")
+    wd = os.path.join(tmp, "ddp_wd")
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), str(port),
+                 out_dir, wd], cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs, out_dir, wd
+
+
+def kill_ranks(procs):
+    for p in procs:
+        p.kill()
+    for p in procs:
+        p.wait()
+
+
+def wait_ddp_ranks(procs, out_dir):
+    """Wait for the gloo pair, each within DDP_TIMEOUT_S (both killed when it
+    runs out). -> {(part, rank): record}."""
+    import os
+
+    try:
+        for p in procs:
+            p.wait(timeout=DDP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_ranks(procs)
+        raise AssertionError(f"phase 8: the gloo ranks did not finish in {DDP_TIMEOUT_S} s")
+    records = {}
+    for r, p in enumerate(procs):
+        with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+            out = f.read()
+        if p.returncode != 0:
+            print(out[-6000:])
+            raise AssertionError(f"phase 8: gloo rank {r} exited {p.returncode}")
+        for line in out.splitlines():
+            if line.startswith("[ddp-rank] "):
+                rec = json.loads(line[len("[ddp-rank] "):])
+                records[(rec["part"] + rec.get("dtype", ""), r)] = rec
+    return records
+
+
+def phase_ddp_gloo(dev, ranks, train_root):
+    """Phase 8: (b) and (d) in the gloo pair `ranks` (`start_ddp_ranks`,
+    started in phase 2 and waiting since), (a) in this process. The pair is
+    let go; while it takes (b)'s steps this process waits, so that their ms
+    are the pair's own; then (a) runs here beside (d). Holds (b) rank 0's
+    step against the 1-process step on the global batch (f32: (a)'s
+    reference and noise floor; bf16: DDP_BF16_LOSS_REL and no further than
+    bf16 from f32) and checks (d): one epoch, the lead's validation through
+    the f32 3x3 kernel, no launch on rank 1 (it trains only), lead-only log
+    and checkpoint. Returns the lead's launches of (d)."""
+    import os
+
+    from complex_yolov4_tpu_torch.models import zoo
+    from complex_yolov4_tpu_torch.models.network import kernel_routes
+
+    procs, out_dir, wd = ranks
+    t0 = time.perf_counter()
+    _signal(os.path.join(out_dir, "go"), train_root)
+    _wait_for_file(os.path.join(out_dir, "b.done"), DDP_TIMEOUT_S)
+    t_b = time.perf_counter() - t0
+    ref32, floor, init = phase_ddp_nccl(dev)
+    ref16 = plain_step(ddp_global_batch(), torch.bfloat16, dev)
+    t_a = time.perf_counter() - t0 - t_b
+    records = wait_ddp_ranks(procs, out_dir)
+    print(f"[ddp] phase 8 timeline, s: (b) in the gloo pair {t_b:.1f}; then (a) and the bf16 "
+          f"reference here {t_a:.1f}, beside (d) in the pair; all done "
+          f"{time.perf_counter() - t0:.1f}")
+    for name in ("float32", "bfloat16"):
+        for r in range(DDP_RANKS):
+            rec = records[("b" + name, r)]
+            print(f"[ddp] (b) rank {r} {name}: step ms (the compared step first, then "
+                  f"{DDP_TIMED_STEPS} more, synced; gloo carries the all-reduces through the "
+                  f"host, both ranks share the card) "
+                  + " ".join(f"{x:.1f}" for x in rec["step_ms"])
+                  + f"; peak memory {rec['peak_gib']:.2f} GiB")
+    for r in range(DDP_RANKS):
+        print(f"[ddp] rank {r}: group joined, weights built and the optimizer's imports done "
+              f"{records[('bfloat32', r)]['ready_s']:.1f} s after its start (beside nvcc); "
+              f"after the go: (b) f32 done {records[('bfloat32', r)]['done_s']:.1f} s, (b) bf16 "
+              f"done {records[('bbfloat16', r)]['done_s']:.1f} s, (d) done "
+              f"{records[('d', r)]['done_s']:.1f} s")
+    got = {name: torch.load(os.path.join(out_dir, f"{name}.pt"), weights_only=False)
+           for name in ("float32", "bfloat16")}
+    ok32 = ddp_f32_ok(f"(b) f32 (TF32 off), 2 ranks x {DDP_PER_RANK} vs 1 process x "
+                      f"{DDP_RANKS * DDP_PER_RANK}", got["float32"]["loss"],
+                      got["float32"]["state"], ref32, floor, init)
+    ok16 = ddp_bf16_ok("(b) bf16, 2 ranks vs 1 process", got["bfloat16"]["loss"],
+                       got["bfloat16"]["state"], ref16, ref32, init)
+    del got, ref16, ref32, init
+    ddp_init.cache_clear()
+    torch.cuda.empty_cache()
+    if not (ok32 and ok16):
+        raise AssertionError("phase 8 (b): the two-rank step differs from the 1-process step")
+
+    lead, other = records[("d", 0)], records[("d", 1)]
+    routes = kernel_routes(zoo.get_model_spec(MODEL), 608, torch.float32)
+    val_batches = -(-TRAIN_VAL_FRAMES // DDP_PER_RANK)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["conv3x3_fused"] = sum(1 for r in routes.values() if r == "conv3x3") * val_batches
+    micro = DDP_CLI_FRAMES // (DDP_RANKS * DDP_PER_RANK)
+    ckpts = os.listdir(os.path.join(wd, "checkpoints", "complexer_yolo"))
+    log = open(os.path.join(wd, "logs", "complexer_yolo", "logger_complexer_yolo.txt")).read()
+    print(f"[ddp] (d) cli.train --num_processes 2 over gloo on the card (beside (a)), {MODEL} "
+          f"@608 bf16, "
+          f"batch {DDP_PER_RANK} per rank, subdivisions 2, {DDP_CLI_FRAMES} frames: "
+          f"micro-batches {lead['micro_batches']} and {other['micro_batches']}, global_step "
+          f"{lead['global_step']} and {other['global_step']}; step ms rank 0 "
+          + " ".join(f"{x:.1f}" for x in lead["step_ms"]) + ", rank 1 "
+          + " ".join(f"{x:.1f}" for x in other["step_ms"])
+          + f"; losses {lead['loss']}; the lead's f32 validation mAP={lead['mAP']} in "
+          f"{lead['val_s']} s; launches lead {lead['launches']}, rank 1 {other['launches']}; "
+          f"checkpoints {ckpts}")
+    ok = (lead["micro_batches"] == other["micro_batches"] == micro
+          and lead["global_step"] == other["global_step"] == micro
+          and lead["launches"] == want and not any(other["launches"].values())
+          and len(lead["mAP"]) == 1 and not other["mAP"] and ckpts == ["epoch_1.ckpt"]
+          and log.count("training done") == 1 and np.isfinite(lead["loss"]).all())
+    if not ok:
+        raise AssertionError(f"phase 8 (d): two-process cli.train off (launches want {want})")
+    return lead["launches"]
+
+
+def phase_ddp_serve(path1, dev):
+    """Phase 8 (c): path 1 served over two replicas on the card
+    (`make_inference_fn(devices=[cuda:0, cuda:0])`, batched COO cells split
+    4 + 4), the launch counts set to 0 just before: each replica's stem and
+    3x3 launches per request. Its detections equal, bit for bit, the
+    one-device function's on each replica's share (batch 4); beside them,
+    the one-device batch of 8 (cuDNN may pick another algorithm at batch 8,
+    and random weights put many candidates at the threshold, so those are
+    printed, not held). Returns the launches."""
+    from complex_yolov4_tpu_torch.data import bev
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+
+    kw = dict(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
+    one = make_inference_fn(**kw)
+    two = make_inference_fn(devices=[dev, dev], **kw)
+    reqs = []
+    for r in range(2):
+        cells_l, keys_l = zip(*map(bev.aggregate_bev_cells, make_scenes(r)))
+        reqs.append(bev.pack_cells_batched(list(cells_l), list(keys_l),
+                                           max(len(c) for c in cells_l)))
+    two(path1, *reqs[0], BATCH)  # builds the second replica
+    torch.cuda.synchronize()
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    outs = [two(path1, *req, BATCH) for req in reqs]
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in fns.items()}
+    want = {k: 2 * n * len(reqs) for k, n in LAUNCHES_PATH1.items()}
+    half = BATCH // 2
+    exact, summary = True, []
+    for req, (dets, masks) in zip(reqs, outs):
+        parts = [one(path1, *(x[i * half:(i + 1) * half] for x in req), half) for i in range(2)]
+        exact &= (torch.equal(dets, torch.cat([d for d, _ in parts]))
+                  and torch.equal(masks, torch.cat([m for _, m in parts])))
+        d8, m8 = one(path1, *req, BATCH)
+        summary.append((masks.sum(1).int().tolist(), m8.sum(1).int().tolist()))
+    print(f"[ddp] (c) path 1 over 2 replicas on {dev} (batched COO, 4 + 4 frames), "
+          f"{len(reqs)} requests of {BATCH}: launches {got} (want {want}: stem 1 and 3x3 5 per "
+          f"replica per request); detections equal to the one-device function on each "
+          f"replica's 4 frames: {exact}; detections per frame split vs one device at batch "
+          f"{BATCH}: {summary}")
+    if got != want or not exact:
+        raise AssertionError("phase 8 (c): the two-replica serve differs or missed a kernel")
+    return got
+
+
 def main() -> None:
     t_start = clock = time.perf_counter()
 
@@ -1696,30 +2248,34 @@ def main() -> None:
     dynamo.start()
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmp_dir.name
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        host = pool.submit(host_side, tmp)
-        phase_build()
-        roots = host.result()  # raises if g++ failed or a native check did
-    dynamo.join()
-    lap("phases 1-2 (device, build; phase 7 a, b, d beside it)")
-    records = phase_kernels(dev)
-    lap("phase 3 (stem and 3x3 kernels)")
-    records["fused_stage"] = phase_fused(dev)
-    lap("phase 3 (fused stage)")
-    records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
-    lap("phase 3 (int8 conv)")
-    spec, path1, path2 = build_models(dev)
-    l1 = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
-    layerwise_segments(path1, dev)
-    l2 = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
-    if "--split" in sys.argv[1:]:
-        phase_split("path1", path1, dev)
-        phase_split("path2", path2, dev)
-    del path1, path2
-    torch.cuda.empty_cache()
-    lap("phase 4 (slice; phase 7 c: served with numpy and native COO)")
+    # phase 8's gloo pair starts now: its imports, group and weights take
+    # host time beside nvcc, and it waits for phase 8 on the card
+    ranks = start_ddp_ranks(tmp)
     try:
-        runs = {"serve path 1": l1, "serve path 2": l2,
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            host = pool.submit(host_side, tmp)
+            phase_build()
+            roots = host.result()  # raises if g++ failed or a native check did
+        dynamo.join()
+        lap("phases 1-2 (device, build; phase 7 a, b, d and phase 8's gloo pair beside it)")
+        records = phase_kernels(dev)
+        lap("phase 3 (stem and 3x3 kernels)")
+        records["fused_stage"] = phase_fused(dev)
+        lap("phase 3 (fused stage)")
+        records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
+        lap("phase 3 (int8 conv)")
+        spec, path1, path2 = build_models(dev)
+        l1 = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
+        l8 = phase_ddp_serve(path1, dev)
+        layerwise_segments(path1, dev)
+        l2 = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
+        if "--split" in sys.argv[1:]:
+            phase_split("path1", path1, dev)
+            phase_split("path2", path2, dev)
+        del path1, path2
+        torch.cuda.empty_cache()
+        lap("phase 4 (slice; phase 7 c: served with numpy and native COO; phase 8 c)")
+        runs = {"serve path 1": l1, "serve path 2": l2, "serve path 1 on 2 replicas": l8,
                 **{f"eval {k}": v for k, v in phase_evaluate(dev, roots["eval"]).items()}}
         lap("phase 5 (evaluate)")
         f32_runs = phase_train(dev, tmp, roots["train"])
@@ -1728,9 +2284,16 @@ def main() -> None:
         lap("phase 7 (e-g: mosaic training, profiler, remat)")
         runs["test cli"] = phase_test_cli(dev, tmp, roots["test"])
         lap("phase 7 (h: cli.test)")
+        torch.cuda.empty_cache()
+        f32_runs["ddp cli.train (lead's f32 validation)"] = phase_ddp_gloo(
+            dev, ranks, roots["train"])
+        lap("phase 8 (a: NCCL, one rank; b, d: the gloo pair)")
+    except BaseException:
+        kill_ranks(ranks[0])
+        raise
     finally:
         tmp_dir.cleanup()
-    print(f"[time] phases 1-7: {time.perf_counter() - t_start:.1f} s")
+    print(f"[time] phases 1-8: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     f32_of = {F32_ROW: "conv3x3_fused", INT8_F32_ROW: "int8_conv"}
     for k in KERNEL_NAMES + tuple(f32_of):
@@ -1750,8 +2313,9 @@ def main() -> None:
         kernels.append(row)
     print("[kernels] launches per run: " + "; ".join(
         f"{name} {run}" for name, run in {**runs, **f32_runs}.items()))
-    print("[kernels] launches: the bf16 runs of phases 4, 5 and 7 together, and for "
-          f"{F32_ROW} and {INT8_F32_ROW} the f32 runs of phase 6; ms, plain_ms, bound_ms and "
+    print("[kernels] launches: the bf16 runs of phases 4, 5, 7 and 8 (c) together, and for "
+          f"{F32_ROW} and {INT8_F32_ROW} the f32 runs of phases 6 and 8 (d); ms, plain_ms, "
+          "bound_ms and "
           "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
           "takes (3x3 in bf16 and f32: layers 1, 6, 11, 16, 19; fused stage: segments 2-10 and "
           "12-23; int8: "
@@ -1764,4 +2328,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank(sys.argv[2:])
+    else:
+        main()

@@ -85,11 +85,15 @@ def resolve_dataset_dir(config) -> str:
 
 def resolve_device(config) -> torch.device:
     """--device: "cuda" (the default) needs a CUDA device and raises without
-    one; "cpu" runs every kernel's plain version."""
+    one; "cpu" runs every kernel's plain version. A training process takes
+    one device, ``cuda:{--process_id % device count}`` for a bare "cuda"
+    (one process per device, `parallel`)."""
     dev = torch.device(config.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run on the CPU)")
+    if dev.type == "cuda" and dev.index is None and hasattr(config, "process_id"):
+        dev = torch.device("cuda", config.process_id % torch.cuda.device_count())
     return dev
 
 

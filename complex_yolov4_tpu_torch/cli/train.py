@@ -1,16 +1,28 @@
 """Training CLI of the port (reference entry point parity: src/train.py).
 
-Counterpart of `complex_yolov4_tpu/cli/train.py` on one process and one
-device: the same flags (`config.runtime.TrainConfig`), plus ``--device``
-(default ``cuda``; raises without CUDA unless ``--device cpu``). Step for
-step as the original: initialize or load the weights, build the optimizer,
-resume, then per epoch train on the device raster of the loader's deferred
-batches (``--host_raster``, and ``--mosaic`` with its 4-frame canvases:
-host-rastered images), read the losses once per print window, evaluate the
-validation mAP in f32 on points through the serving `Darknet` (the 3x3
-kernel's f32 instance on CUDA), and save an async checkpoint. Ctrl-C exits
-130 after the in-flight save is joined. ``--remat`` checkpoints the
-forward's activations (`TrainDarknet.forward`); ``--profile_steps N``
+Counterpart of `complex_yolov4_tpu/cli/train.py`: the same flags
+(`config.runtime.TrainConfig`), plus ``--device`` (default ``cuda``; raises
+without CUDA unless ``--device cpu``). Step for step as the original:
+initialize or load the weights, build the optimizer, resume, then per
+epoch train on the device raster of the loader's deferred batches
+(``--host_raster``, and ``--mosaic`` with its 4-frame canvases:
+host-rastered images; `parallel.device_prefetch` copies each batch to the
+device ahead of its step), read the losses once per print window,
+evaluate the validation mAP in f32 on points through the serving `Darknet`
+(the 3x3 kernel's f32 instance on CUDA), and save an async checkpoint.
+Ctrl-C exits 130 after the in-flight save is joined.
+
+Data parallel: one process per device (`parallel`). ``--num_processes N
+--process_id i --coordinator_address host:port`` makes process i rank i of
+N over NCCL (``--device cpu``: gloo) on ``cuda:{i % device count}``; each
+rank's loader yields its shard of ``--batch_size`` frames, and the step is
+the one step of the concatenated global batch (`train.trainer`). The lead
+(rank 0) alone writes the log, the TensorBoard events, the profiler trace
+and the checkpoints, and validates on the whole val split while the other
+ranks wait at a barrier, so the mAP is the one-process mAP; every rank
+restores ``--resume_path``; the group is left in a ``finally``.
+
+``--remat`` checkpoints the forward's activations (`TrainDarknet.forward`); ``--profile_steps N``
 traces N steps from iteration ``--profile_start`` with `torch.profiler`
 (host, and the card's kernels on CUDA) into ``logs_dir``, one
 ``*.pt.trace.json`` for TensorBoard or chrome://tracing.
@@ -18,12 +30,13 @@ traces N steps from iteration ``--profile_start`` with `torch.profiler`
 The TPU-link knobs ``--epoch_preload``, ``--sync_checkpoint`` and
 ``--no_precompile_multiscale`` and the layout rewrite ``--batch_pack``
 compute the same function: they are accepted and logged as not ported.
-``--num_processes > 1`` raises a ValueError naming the ROADMAP item that
-ports it.
 
 Usage (synthetic smoke on the CPU):
     python -m complex_yolov4_tpu_torch.cli.train --synthetic --num_epochs 1 \\
         --model complex_yolov4_tiny --batch_size 2 --img_size 96 --device cpu
+Two processes (one per device; here both on the CPU, over gloo), each:
+    python -m complex_yolov4_tpu_torch.cli.train ... --num_processes 2 \\
+        --process_id {0,1} --coordinator_address localhost:29500
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from .. import train as T
 from ..config.runtime import parse_train_config
 from ..data.loader import create_train_loader, create_val_loader
@@ -49,10 +63,13 @@ from . import common
 _INERT = ("epoch_preload", "sync_checkpoint", "no_precompile_multiscale", "batch_pack")
 
 
+# what device_prefetch copies to the device: the deferred or the image
+# batch's arrays (the multiscale `size` stays on the host)
+_BATCH_KEYS = ("points", "point_mask", "flip", "holes", "hole_mask", "image", "targets",
+               "target_mask")
+
+
 def _check_flags(configs, logger) -> None:
-    if configs.num_processes > 1:
-        raise ValueError("--num_processes > 1 is not ported yet: data-parallel training "
-                         "is ROADMAP.md §1 item 2 (DDP)")
     for name in _INERT:
         if getattr(configs, name):
             logger.info("--%s: a TPU-side rewrite or link workaround, computing the same "
@@ -92,10 +109,26 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
     np.random.seed(configs.seed)
     torch.manual_seed(configs.seed)
     device = common.resolve_device(configs)
-    configs.make_dirs()
-    logger = create_logger(configs.logs_dir, configs.saved_fn)
+    parallel.initialize_distributed(configs.coordinator_address, configs.num_processes,
+                                    configs.process_id, device=device)
+    try:
+        state = _train(configs, device, timings)
+    finally:
+        parallel.destroy()
+    # the group is gone: the returned state steps on this process alone
+    state.ddp = None
+    state.model.process_group = None
+    return state
+
+
+def _train(configs, device: torch.device, timings: Optional[Dict[str, list]]):
+    info = parallel.local_shard_info()
+    is_lead = info["shard_id"] == 0
+    if is_lead:
+        configs.make_dirs()
+    logger = create_logger(configs.logs_dir, configs.saved_fn, is_lead)
     _check_flags(configs, logger)
-    tb_writer = _tensorboard(configs.logs_dir, logger)
+    tb_writer = _tensorboard(configs.logs_dir, logger) if is_lead else None
 
     dataset_dir = common.resolve_dataset_dir(configs)
     spec = common.resolve_spec(configs)
@@ -111,6 +144,11 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
                                    momentum=configs.momentum,
                                    weight_decay=configs.weight_decay)
     state = T.TrainState(model=model, optimizer=optimizer)
+    if info["num_shards"] > 1:
+        state.ddp = parallel.wrap_ddp(model, device)
+        logger.info("data parallel: %d processes, one device each (this one %s), batch %d "
+                    "per process, %d global", info["num_shards"], device, configs.batch_size,
+                    configs.batch_size * info["num_shards"])
 
     start_epoch = configs.start_epoch
     global_iter = 0
@@ -134,6 +172,7 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
         dataset_dir, configs.batch_size, num_samples=configs.num_samples,
         multiscale=configs.multiscale_training, mosaic=configs.mosaic,
         random_padding=configs.random_padding, seed=configs.seed,
+        shard_id=info["shard_id"], num_shards=info["num_shards"],
         hflip_prob=configs.hflip_prob, cutout_prob=configs.cutout_prob,
         cutout_nholes=configs.cutout_nholes, cutout_ratio=configs.cutout_ratio,
         cutout_fill_value=configs.cutout_fill_value, device_raster=device_raster)
@@ -143,7 +182,7 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
                 ", remat" if configs.remat else "")
 
     infer_fn = val_loader = None
-    if not configs.no_val:
+    if not configs.no_val and is_lead:
         # validation in f32 on points, as the JAX CLI's (train.py:145-148)
         val_loader = create_val_loader(dataset_dir, configs.batch_size,
                                        device_raster=not configs.host_raster)
@@ -165,12 +204,14 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
             t0 = time.time()
             pending = []  # (batch size, device loss) not yet read
             t_load = time.perf_counter()
-            for b_idx, batch in enumerate(loader):
+            batches = parallel.device_prefetch(loader, device, keys=_BATCH_KEYS,
+                                               host_keys=("size",))
+            for b_idx, batch in enumerate(batches):
                 if timings is not None:
                     timings["load"].append(time.perf_counter() - t_load)
                 # multi_step advances per optimizer iteration (train.py:213-218)
                 lr = lr_fn(global_iter // subdivisions, epoch - 1)
-                if configs.profile_steps and global_iter == configs.profile_start:
+                if is_lead and configs.profile_steps and global_iter == configs.profile_start:
                     prof = _start_profiler(configs.logs_dir, device)
                 img_size = int(batch.get("size", 0)) if device_raster else 0
                 want_metrics = (global_iter + 1) % configs.tensorboard_freq == 0
@@ -187,12 +228,13 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
                     prof = None
                     logger.info("profiler trace of %d steps written to %s",
                                 configs.profile_steps, configs.logs_dir)
-                # the loss stays on the device until a print or tensorboard
-                # window reads the window's losses in one transfer
+                # the loss (the global batch's) stays on the device until a
+                # print or tensorboard window reads the window's losses in
+                # one transfer
                 pending.append((batch["targets"].shape[0], metrics["loss"]))
                 batch_time.update(time.time() - t0)
                 t0 = time.time()
-                want_print = b_idx % configs.print_freq == 0
+                want_print = is_lead and b_idx % configs.print_freq == 0
                 want_tb = tb_writer is not None and global_iter % configs.tensorboard_freq == 0
                 if want_print or want_tb:
                     vals = torch.stack([v for _, v in pending]).cpu().tolist()
@@ -236,16 +278,21 @@ def main(argv=None, *, timings: Optional[Dict[str, list]] = None):
                 if tb_writer is not None:
                     tb_writer.add_scalar("val/mAP", float(out["mAP"]), epoch)
 
-            if epoch % configs.checkpoint_freq == 0 or epoch == configs.num_epochs:
+            if is_lead and (epoch % configs.checkpoint_freq == 0
+                            or epoch == configs.num_epochs):
                 T.save_checkpoint_async(configs.checkpoints_dir, state, epoch)
                 logger.info("checkpoint save for epoch %d started (async, %s)",
                             epoch, T.checkpoint_path(configs.checkpoints_dir, epoch))
+            # the other ranks wait here while the lead validates
+            parallel.barrier()
     finally:
         if prof is not None:  # the loop ended inside the traced steps
             prof.stop()
         # join (and surface the error of) an in-flight save, also when the
         # loop raises or is interrupted
         T.wait_for_async_save()
+    # the other ranks leave once the lead's last checkpoint is written
+    parallel.barrier()
     if tb_writer is not None:
         tb_writer.close()
     logger.info("training done: %d epochs, %d iterations",

@@ -105,7 +105,9 @@ class TrainConfig:
     profile_steps: int = 0                  # 0 = off; else trace N steps
     profile_start: int = 3                  # first traced global iteration
 
-    # distributed (multi-host JAX; replaces DDP's rendezvous surface)
+    # data parallel, one process per device (`parallel`): the world size,
+    # this process's rank (it takes cuda:{rank % device count}) and the
+    # host:port of the tcp:// rendezvous
     num_processes: int = 1
     process_id: int = 0
     coordinator_address: Optional[str] = None

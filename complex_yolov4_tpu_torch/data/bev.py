@@ -14,7 +14,9 @@ Host (numpy; copies of the originals, held bit-equal to them by
 `tests/test_torch_port_copies.py`):
 - `make_bev_map`, `pad_points`, `pack_points_flat`: the host raster and the
   padded / flat point layouts of the device points raster;
-- `aggregate_bev_cells`, `pack_cells_flat`: the COO layout. The host walks
+- `aggregate_bev_cells`, `pack_cells_flat` (frame-global ids, one flat
+  buffer) and `pack_cells_batched` (frame-local ids, (B, C) lanes that
+  split over devices): the COO layouts. The host walks
   the cropped cloud once and resolves, per occupied cell, the max height,
   the intensity of the top point and the saturating point count, packed
   into one int32 key:
@@ -24,8 +26,9 @@ Host (numpy; copies of the originals, held bit-equal to them by
     bits [ 7: 0] intensity = round(r_top * 255)
 
 Device (torch, on the device the inputs lie on):
-- `make_bev_map_from_cells`: two conflict-free scatters over the occupied
-  cells and an elementwise unpack (`tests/test_torch_port_raster.py`:
+- `make_bev_map_from_cells` and `make_bev_map_from_cells_batched`: two
+  conflict-free scatters over the occupied cells and an elementwise unpack
+  (`tests/test_torch_port_raster.py`, `tests/test_torch_port_shard.py`:
   bit-exact against JAX);
 - `make_bev_map_points` / `make_bev_map_points_flat`: the points raster
   (`make_bev_map_jax` / `make_bev_map_jax_flat`): a float count scatter-add
@@ -238,6 +241,60 @@ def make_bev_map_from_cells(cells: torch.Tensor, keys: torch.Tensor,
     intensity = (u & 0xFF).float() * torch.tensor(1.0 / 255.0, dtype=torch.float32)
     height = (u >> 14).float() * torch.tensor(1.0 / _HQ_MAX, dtype=torch.float32)
     density = dbuf[:n_cells].reshape(batch, grid, grid)
+    full = torch.stack([intensity, height, density], dim=-1)
+    return full[:, :bev_size, :bev_size, :]
+
+
+def pack_cells_batched(cell_arrays, key_arrays, per_frame_capacity: int,
+                       total_frames: Optional[int] = None,
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Batched COO layout for `make_bev_map_from_cells_batched`: per-frame
+    (cells, keys) -> ((B, C) cells int32, (B, C) keys int32, (B, C) dens
+    f32) with frame-local cell ids. Unlike the flat layout it has a batch
+    axis, so a batch splits over devices; the cost is B x per-frame
+    capacity lanes instead of the batch total. Dead lanes carry key 0
+    (impossible for an occupied cell: count >= 1 sets bit 8), which the
+    device routes to the dump slot, so zero rows are valid pad frames.
+    Frames with more than `per_frame_capacity` cells truncate.
+    total_frames: rows (>= len(cell_arrays)); the rest are pad frames."""
+    if total_frames is None:
+        total_frames = len(cell_arrays)
+    if total_frames < len(cell_arrays):
+        raise ValueError(f"total_frames {total_frames} < {len(cell_arrays)} frames")
+    cells = np.zeros((total_frames, per_frame_capacity), np.int32)
+    keys = np.zeros((total_frames, per_frame_capacity), np.int32)
+    for fid, (c, k) in enumerate(zip(cell_arrays, key_arrays)):
+        n = min(c.shape[0], per_frame_capacity)
+        cells[fid, :n] = c[:n]
+        keys[fid, :n] = k[:n]
+    return cells, keys, density_from_keys(keys)
+
+
+def make_bev_map_from_cells_batched(cells: torch.Tensor, keys: torch.Tensor,
+                                    dens: torch.Tensor,
+                                    bev_size: int = cnf.BEV_HEIGHT) -> torch.Tensor:
+    """Batched COO raster: (B, C) frame-local cell ids + packed keys + host
+    density (`pack_cells_batched`) -> (B, S, S, 3) float32, on the device the
+    inputs lie on. The math of `make_bev_map_from_cells`, frame by frame:
+    frame b scatters into its own (grid^2 + 1) slots, the last its dump,
+    which every dead lane (key 0) writes."""
+    grid = bev_size + 1
+    n_cells = grid * grid
+    batch = cells.shape[0]
+    dev = cells.device
+    keys = keys.to(torch.int32)
+    idx = torch.where(keys != 0, cells.long(), torch.full_like(cells, n_cells, dtype=torch.long))
+    idx = (idx + torch.arange(batch, device=dev)[:, None] * (n_cells + 1)).reshape(-1)
+    buf = torch.zeros(batch * (n_cells + 1), dtype=torch.int32, device=dev)
+    buf.index_put_((idx,), keys.reshape(-1))
+    dbuf = torch.zeros(batch * (n_cells + 1), dtype=torch.float32, device=dev)
+    dbuf.index_put_((idx,), dens.to(torch.float32).reshape(-1))
+    # unsigned unpack through int64, as in `make_bev_map_from_cells`
+    u = (buf.reshape(batch, n_cells + 1)[:, :n_cells].long() & 0xFFFFFFFF).reshape(
+        batch, grid, grid)
+    intensity = (u & 0xFF).float() * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+    height = (u >> 14).float() * torch.tensor(1.0 / _HQ_MAX, dtype=torch.float32)
+    density = dbuf.reshape(batch, n_cells + 1)[:, :n_cells].reshape(batch, grid, grid)
     full = torch.stack([intensity, height, density], dim=-1)
     return full[:, :bev_size, :bev_size, :]
 

@@ -8,14 +8,21 @@ and `create_test_loader` of `complex_yolov4_tpu/data/loader.py`
 - a seeded per-epoch order (`shuffle`, `seed`, `set_epoch`); each sample's
   augmentations draw from `default_rng((seed, epoch, index, slot))`, so a
   batch is the JAX loader's for the same seed and epoch;
+- per-process shards for data parallel (`shard_id`, `num_shards`): the
+  epoch's order padded by wrapping to a multiple of `num_shards`, then
+  every `num_shards`-th index from `shard_id` (DistributedSampler's
+  semantics, the JAX loader's), so every shard has as many batches; the
+  multiscale size is drawn from `(seed, epoch)` alone, alike on every
+  shard, so the ranks' batches agree in shape;
 - fixed-shape numpy batches in one of three layouts: host-rastered images
   (`image`), deferred padded points and the recorded flip and cutout
   decisions for the device points raster (`points`, `point_mask`, `flip`,
-  `holes`, `hole_mask`, `size`), or flat COO cells for the device COO
-  raster (`cells`, `cell_keys`, `cell_dens`, `batch`, `batch_cap`; val
-  only); each with `targets` (B, T, 7), `target_mask` (B, T) and
-  `sample_ids`; a deferred test batch carries the padded points and the
-  host-rastered `image` for drawing, and no targets;
+  `holes`, `hole_mask`, `size`), or COO cells for the device COO raster
+  (`cells`, `cell_keys`, `cell_dens`, `batch`, `batch_cap`; val only),
+  flat or, with `cells_batched`, in (B, C) lanes that split over devices
+  (`bev.pack_cells_batched`); each with `targets` (B, T, 7), `target_mask`
+  (B, T) and `sample_ids`; a deferred test batch carries the padded points
+  and the host-rastered `image` for drawing, and no targets;
 - host COO cells and host rasters come from the native C++ rasterizer
   (`native/`) where it builds, else from the numpy functions it equals;
 - mosaic training (4 frames on a 2S x 2S canvas, resized back to S here,
@@ -29,9 +36,6 @@ and `create_test_loader` of `complex_yolov4_tpu/data/loader.py`
 - frames of a batch load on a thread pool that the iteration owns, and a
   background thread assembles the next batches while the consumer works;
   its end-of-data mark waits for room like a batch.
-
-The per-host shards and the batched COO layout (for a data mesh) wait for
-the data-parallel slice.
 """
 
 from __future__ import annotations
@@ -113,6 +117,9 @@ class BatchIterator:
         max_holes: int = 1,
         cells_raster: bool = False,
         cell_capacity: Optional[int] = None,
+        shard_id: int = 0,
+        num_shards: int = 1,
+        cells_batched: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -128,10 +135,15 @@ class BatchIterator:
         # of it: host-aggregated COO cells (the `from_cells` program)
         self.device_raster = device_raster and not dataset.mosaic
         self.cells_raster = cells_raster and device_raster
+        self.cells_batched = cells_batched
         # Per-frame COO cell capacity; None = derived from a workload sample
         # at first use (`_cells_per_frame_cap`)
         self.cell_capacity = cell_capacity
         self.seed = seed
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} outside 0..{num_shards - 1}")
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.prefetch = prefetch  # batches assembled ahead; 0: no thread
         self.workers = min(8, os.cpu_count() or 4)
         self.epoch = 0
@@ -149,7 +161,12 @@ class BatchIterator:
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
         rng = np.random.default_rng((self.seed, self.epoch))
-        return rng.permutation(n) if self.shuffle else np.arange(n)
+        idx = rng.permutation(n) if self.shuffle else np.arange(n)
+        if self.num_shards > 1:
+            per = -(-n // self.num_shards)
+            padded = np.concatenate([idx, idx[: per * self.num_shards - n]])
+            idx = padded[self.shard_id::self.num_shards]
+        return idx
 
     def __len__(self) -> int:
         n = len(self._epoch_indices())
@@ -246,9 +263,9 @@ class BatchIterator:
 
     def _make_batch_deferred_cells(self, indices: np.ndarray, pool) -> Dict[str, np.ndarray]:
         """COO val batch: per-cell (id, key, density) aggregated on the host,
-        packed flat at the loader's full batch size and a fixed capacity, so
-        a tail batch serves like a full one (its pad frames raster empty and
-        the caller slices them off)."""
+        packed at the loader's full batch size and a fixed capacity, so a
+        tail batch serves like a full one (its pad frames raster empty and
+        the caller slices them off): flat, or (B, C) with `cells_batched`."""
         def load_one(index, j):
             _, (_, lidar), targets, mask = self.dataset.load_sample(
                 index, self._rng(index, j), defer_raster=True)
@@ -257,10 +274,15 @@ class BatchIterator:
 
         cells_l, keys_l, tgts, masks = zip(*self._map(pool, load_one, indices))
         per_frame = self._cells_per_frame_cap()
-        cap = self.batch_size * per_frame
-        dropped = max(0, sum(len(c) for c in cells_l) - cap)
-        cells, keys, dens = bev_mod.pack_cells_flat(
-            list(cells_l), list(keys_l), cap, total_frames=self.batch_size)
+        if self.cells_batched:
+            dropped = sum(max(0, len(c) - per_frame) for c in cells_l)
+            cells, keys, dens = bev_mod.pack_cells_batched(
+                list(cells_l), list(keys_l), per_frame, total_frames=self.batch_size)
+        else:
+            cap = self.batch_size * per_frame
+            dropped = max(0, sum(len(c) for c in cells_l) - cap)
+            cells, keys, dens = bev_mod.pack_cells_flat(
+                list(cells_l), list(keys_l), cap, total_frames=self.batch_size)
         if dropped:
             self._dropped_cells += dropped
             if not self._warned_cell_truncate:
@@ -411,33 +433,39 @@ class BatchIterator:
 
 def create_val_loader(dataset_dir: str, batch_size: int, *,
                       num_samples: Optional[int] = None,
+                      shard_id: int = 0, num_shards: int = 1,
                       device_raster: bool = False,
                       cells_raster: bool = False,
+                      cells_batched: bool = False,
                       cell_capacity: Optional[int] = None) -> BatchIterator:
     """Validation pipeline: no augmentation, no multiscale, the tail batch
     kept (reference: kitti_dataloader.py:50-61).
 
     device_raster: emit compact padded points instead of host-rastered
     images, for the `from_points` inference program. cells_raster (with
-    device_raster): emit host-aggregated flat COO cells for the `from_cells`
-    program; `cell_capacity` pins the per-frame cell budget (default:
-    derived from a workload sample)."""
+    device_raster): emit host-aggregated COO cells for the `from_cells`
+    program, flat, or (B, C) with `cells_batched` (a batch served over
+    several devices); `cell_capacity` pins the per-frame cell budget
+    (default: derived from a workload sample)."""
     ds = KittiDataset(dataset_dir, mode="val", num_samples=num_samples)
     return BatchIterator(ds, batch_size, shuffle=False, drop_last=False,
+                         shard_id=shard_id, num_shards=num_shards,
                          device_raster=device_raster, cells_raster=cells_raster,
-                         cell_capacity=cell_capacity)
+                         cells_batched=cells_batched, cell_capacity=cell_capacity)
 
 
 def create_train_loader(dataset_dir: str, batch_size: int, *,
                         num_samples: Optional[int] = None,
                         multiscale: bool = False, mosaic: bool = False,
                         random_padding: bool = False, seed: int = 2020,
+                        shard_id: int = 0, num_shards: int = 1,
                         hflip_prob: float = 0.5, cutout_prob: float = 0.0,
                         cutout_nholes: int = 1, cutout_ratio: float = 0.3,
                         cutout_fill_value: float = 0.0,
                         device_raster: bool = False) -> BatchIterator:
     """Training pipeline with the reference augmentation recipe, shuffled per
-    epoch, the tail dropped (reference: kitti_dataloader.py:22-47). Mosaic
+    epoch, the tail dropped (reference: kitti_dataloader.py:22-47), this
+    process's shard (`shard_id` of `num_shards`) for data parallel. Mosaic
     samples are rastered on the host (the fused native mosaic where it
     builds), so `mosaic` turns `device_raster` and `multiscale` off."""
     ds = KittiDataset(
@@ -448,8 +476,8 @@ def create_train_loader(dataset_dir: str, batch_size: int, *,
         num_samples=num_samples, mosaic=mosaic, random_padding=random_padding,
     )
     return BatchIterator(ds, batch_size, shuffle=True, drop_last=True, multiscale=multiscale,
-                         seed=seed, device_raster=device_raster,
-                         max_holes=max(cutout_nholes, 1))
+                         seed=seed, shard_id=shard_id, num_shards=num_shards,
+                         device_raster=device_raster, max_holes=max(cutout_nholes, 1))
 
 
 def create_test_loader(dataset_dir: str, batch_size: int, *,

@@ -13,13 +13,20 @@ runs: a bf16 `Darknet` serves path 1 (stem and 3x3 kernels, cuDNN
 elsewhere); a `Darknet(quant=..., fused_stages=True)` serves path 2, the
 JAX package's `FUSED_STAGE=1 bench.py` configuration (int8 PTQ convs on
 the int8 kernel, the CSP stages on the fused-stage kernel); an f32 model
-serves on the CPU only.
+serves in f32 (on CUDA the 3x3 kernel's f32 instance).
+
+Several devices (`devices`, the JAX package's `mesh`): the model is
+replicated once on each, the batch is split over them in order (a batch
+that does not divide is zero-padded and the pad sliced off), the replicas'
+forwards are all queued before any NMS reads its results back, and the
+detections are concatenated in order.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,9 +41,11 @@ from . import metrics as M
 def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
                       max_boxes: int = 256, from_points: bool = False,
                       from_cells: bool = False,
-                      img_size: Optional[int] = None) -> Callable:
+                      img_size: Optional[int] = None,
+                      devices: Optional[Sequence] = None) -> Callable:
     """-> infer(model, *inputs) returning (detections (B, max_boxes, 9),
-    masks (B, max_boxes)) on the model's device.
+    masks (B, max_boxes)) on the model's device (with `devices`, on the
+    first of them).
 
     Detection rows are [x, y, w, l, im, re, conf, cls_conf, cls_id] in input
     pixels. Inputs (numpy or tensors; they are moved to the model's device):
@@ -45,49 +54,90 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
       the loader's deferred batch; the device rasters it at the native 608
       (`bev.images_from_deferred_batch`) and resizes to `img_size`;
     - from_cells: infer(model, cells, keys, dens, batch_n, batch_cap=None),
-      the flat (capacity,) arrays of `bev.pack_cells_flat`; `batch_cap` is
-      the frame count they were packed for (default `batch_n`): pad frames
-      raster empty and are sliced off; rasters at the native 608, then
-      resizes to `img_size`.
+      the flat (capacity,) arrays of `bev.pack_cells_flat`, or the (B, C)
+      arrays of `bev.pack_cells_batched`; `batch_cap` is the frame count
+      they were packed for (default `batch_n`): pad frames raster empty and
+      are sliced off; rasters at the native 608, then resizes to `img_size`.
+
+    devices: serve each batch split over these devices (`parallel.
+    make_mesh_for_batch`), the model replicated once on each; the first
+    replica is the model itself when it lies on the first device. A flat
+    COO batch cannot split (its cell ids are batch-global) and raises with
+    more than one device: use the batched layout.
     """
     if from_cells and from_points:
         raise ValueError("from_cells and from_points are exclusive")
     size = img_size or cnf.BEV_HEIGHT
+    devs = [torch.device(d) for d in devices] if devices else []
+    # model -> its replicas on `devs`, built at its first call
+    replicas: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
-    def net_tail(model: Darknet, images: torch.Tensor):
-        decoded = model(images.permute(0, 3, 1, 2))  # NCHW view, channels_last
+    def replicas_of(model: Darknet) -> List[Darknet]:
+        if model not in replicas:
+            replicas[model] = [model if i == 0 and model.device == d else model.replicate(d)
+                               for i, d in enumerate(devs)]
+        return replicas[model]
+
+    def raster(dev, inputs, cap: Optional[int]) -> torch.Tensor:
+        """(B, size, size, 3) f32 rasters of `inputs` on `dev`; cap: the
+        frame count of a flat COO batch (None for every other input)."""
+        if from_cells:
+            cells, keys, dens = (torch.as_tensor(x, device=dev) for x in inputs)
+            if cap is None:
+                images = bev.make_bev_map_from_cells_batched(cells, keys, dens)
+            else:
+                images = bev.make_bev_map_from_cells(cells, keys, dens, cap)
+            return bev.resize_images(images, size)
+        if from_points:
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(
+                ("points", "point_mask", "flip", "holes", "hole_mask"), inputs)}
+            return bev.images_from_deferred_batch(batch, size)
+        return torch.as_tensor(inputs[0], dtype=torch.float32, device=dev)
+
+    def forward(model: Darknet, images: torch.Tensor) -> torch.Tensor:
+        return model(images.permute(0, 3, 1, 2))  # NCHW view, channels_last
+
+    def nms(decoded: torch.Tensor):
         return nms_batch(decoded, conf_thresh, nms_thresh, max_boxes)
 
-    @torch.inference_mode()
+    def run(model: Darknet, inputs, cap: Optional[int] = None):
+        reps = replicas_of(model) if devs else [model]
+        with torch.inference_mode():
+            if len(reps) == 1:
+                return nms(forward(reps[0], raster(reps[0].device, inputs, cap)))
+            xs = [torch.as_tensor(x) for x in inputs]
+            b = xs[0].shape[0]
+            pad = (-b) % len(reps)
+            if pad:  # zero frames: empty clouds, cells or images
+                xs = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in xs]
+            per = (b + pad) // len(reps)
+            # every replica's forward is queued before any NMS syncs with the host
+            decoded = [forward(m, raster(m.device, [x[i * per:(i + 1) * per] for x in xs],
+                                         None))
+                       for i, m in enumerate(reps)]
+            outs = [nms(d) for d in decoded]
+            dets = torch.cat([d.to(devs[0]) for d, _ in outs])
+            masks = torch.cat([m.to(devs[0]) for _, m in outs])
+        return dets[:b], masks[:b]
+
     def infer_cells(model: Darknet, cells, keys, dens, batch_n: int,
                     batch_cap: Optional[int] = None):
         n = int(batch_n)
-        dev = model.device
-        cells = torch.as_tensor(cells, device=dev)
-        if cells.dim() != 1:
-            raise ValueError("flat (capacity,) COO layout expected")
-        keys = torch.as_tensor(keys, device=dev)
-        dens = torch.as_tensor(dens, device=dev)
-        images = bev.make_bev_map_from_cells(cells, keys, dens, int(batch_cap or n))
-        dets, masks = net_tail(model, bev.resize_images(images, size))
+        cap = None
+        if np.ndim(cells) == 1:
+            if len(devs) > 1:
+                raise ValueError("flat COO batches cannot split over devices: "
+                                 "use the batched layout (cells_batched)")
+            cap = int(batch_cap or n)
+        elif np.ndim(cells) != 2:
+            raise ValueError("flat (capacity,) or batched (B, C) COO layout expected")
+        dets, masks = run(model, (cells, keys, dens), cap)
         return dets[:n], masks[:n]
 
-    @torch.inference_mode()
-    def infer_points(model: Darknet, points, point_mask, flip, holes, hole_mask):
-        dev = model.device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in (
-            ("points", points), ("point_mask", point_mask), ("flip", flip),
-            ("holes", holes), ("hole_mask", hole_mask))}
-        return net_tail(model, bev.images_from_deferred_batch(batch, size))
+    def infer(model: Darknet, *inputs):
+        return run(model, inputs)
 
-    @torch.inference_mode()
-    def infer_images(model: Darknet, images):
-        return net_tail(model, torch.as_tensor(images, dtype=torch.float32,
-                                               device=model.device))
-
-    if from_cells:
-        return infer_cells
-    return infer_points if from_points else infer_images
+    return infer_cells if from_cells else infer
 
 
 def evaluate_map(

@@ -22,6 +22,15 @@ winner on CUDA would be undefined for duplicate indices.
 
 Inputs: decode dicts of `models.yolo_head.decode_head_raw`, targets (B, T, 7)
 [cls, x, y, w, l, im, re] normalized rows and a (B, T) validity mask.
+
+Data parallel (`group`): every term is a sum over cells or targets divided
+by a count (matched cells, valid targets, noobj cells, confident cells).
+With a process group the counts are all-reduced (they carry no gradient),
+so each rank's loss and metrics are its own sums over the global counts:
+their sum over the ranks is the loss and the metrics of the global batch,
+as the JAX step on a data mesh computes them. The train step scales the
+rank's loss by the world size before the backward, so that DDP's mean of
+the gradients is the gradient of that sum.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.spec import NetSpec, YoloSpec
 from ..ops import rotated_boxes as rb
@@ -78,8 +88,10 @@ def bce(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return _BCE.apply(p, t)
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """sum(x * mask) / max(count, 1); count: mask's sum (over every rank's
+    batch under a process group)."""
+    return (x * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def _gather_cells(values: torch.Tensor, src: torch.Tensor, has: torch.Tensor) -> torch.Tensor:
@@ -171,13 +183,14 @@ def build_targets_dense(g: int, anchors: torch.Tensor, nc: int, targets: torch.T
 
 
 def head_loss(raw: Dict, spec: YoloSpec, targets: torch.Tensor, target_mask: torch.Tensor, *,
-              use_giou_loss: bool = False, want_metrics: bool = True
+              use_giou_loss: bool = False, want_metrics: bool = True, group=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss for one YOLO head; returns (total, the 18-metric dict).
 
     want_metrics=False skips the metric-only work (the pred-vs-target IoU
     in MSE mode, the per-cell score gathers) and reports those 8 metrics as
-    0, as the original's `lax.cond` branch does."""
+    0, as the original's `lax.cond` branch does. group: the process group
+    over which the counts are all-reduced (module docstring)."""
     g = raw["grid_size"]
     anchors = raw["scaled_anchors"]
     na = anchors.shape[0]
@@ -198,8 +211,11 @@ def head_loss(raw: Dict, spec: YoloSpec, targets: torch.Tensor, target_mask: tor
     pred_conf, pred_cls = flat(raw["pred_conf"]), flat(raw["pred_cls"])
     pred_boxes = flat(raw["pred_boxes"])
 
-    n_obj = obj_flat.sum()
-    n_valid = valid.sum().float()
+    conf50 = (pred_conf.detach() > 0.5).float()
+    counts = torch.stack([obj_flat.sum(), valid.sum().float(), noobj_flat.sum(), conf50.sum()])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    n_obj, n_valid, n_noobj, n_conf50 = counts.unbind()
     one = torch.ones((), device=dev)
 
     def obj_mse(p, t):
@@ -213,12 +229,12 @@ def head_loss(raw: Dict, spec: YoloSpec, targets: torch.Tensor, target_mask: tor
     loss_re = obj_mse(pred_re, dense["tre"])
     # the eps guards sqrt'(0) where a cell predicts im = re = 0 exactly
     circle = (1.0 - torch.sqrt(pred_im ** 2 + pred_re ** 2 + 1e-12)) ** 2
-    loss_im_re = _masked_mean(circle, obj_flat)
+    loss_im_re = _masked_mean(circle, obj_flat, n_obj)
     loss_eular = loss_im + loss_re + loss_im_re
 
     bce_conf = bce(pred_conf, obj_flat)
-    loss_conf_obj = _masked_mean(bce_conf, obj_flat)
-    loss_conf_noobj = _masked_mean(bce_conf, noobj_flat)
+    loss_conf_obj = _masked_mean(bce_conf, obj_flat, n_obj)
+    loss_conf_noobj = _masked_mean(bce_conf, noobj_flat, n_noobj)
     loss_cls = ((bce(pred_cls, dense["tcls"]) * obj_flat[:, None]).sum()
                 / torch.maximum(n_obj * nc, one))
 
@@ -251,20 +267,19 @@ def head_loss(raw: Dict, spec: YoloSpec, targets: torch.Tensor, target_mask: tor
             match = ((cls_pred_at[tgt_cell].reshape(b_sz, t_cap) == cls_safe).float() * vmask)
             class_match = _gather_cells(match.reshape(-1), src, has)
             iou_scores = _gather_cells((iou * vmask).reshape(-1), src, has)
-            conf50 = (pred_conf > 0.5).float()
             iou50 = (iou_scores > 0.5).float()
             iou75 = (iou_scores > 0.75).float()
             detected = conf50 * class_match * obj_flat
             eps = torch.tensor(_EPS, device=dev)
             extras = (
-                _masked_mean(iou_scores, obj_flat),
+                _masked_mean(iou_scores, obj_flat, n_obj),
                 giou_loss.detach() if use_giou_loss else iou_loss_plain,
-                100.0 * _masked_mean(class_match, obj_flat),
+                100.0 * _masked_mean(class_match, obj_flat, n_obj),
                 (iou50 * detected).sum() / torch.maximum(n_obj, eps),
                 (iou75 * detected).sum() / torch.maximum(n_obj, eps),
-                (iou50 * detected).sum() / (conf50.sum() + eps),
-                _masked_mean(pred_conf, obj_flat),
-                _masked_mean(pred_conf, noobj_flat),
+                (iou50 * detected).sum() / (n_conf50 + eps),
+                _masked_mean(pred_conf, obj_flat, n_obj),
+                _masked_mean(pred_conf, noobj_flat, n_noobj),
             )
     else:
         extras = (zero,) * 8
@@ -283,9 +298,11 @@ def head_loss(raw: Dict, spec: YoloSpec, targets: torch.Tensor, target_mask: tor
 
 def network_loss(spec: NetSpec, head_raw: Sequence[Dict], targets: torch.Tensor,
                  target_mask: torch.Tensor, *, use_giou_loss: bool = False,
-                 want_metrics: bool = True) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+                 want_metrics: bool = True, group=None
+                 ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
     """Sum of the per-head losses (reference: darknet2pytorch.py:220-226);
-    returns (total, per-head metric dicts)."""
+    returns (total, per-head metric dicts). With a process group, the
+    rank's share of them (module docstring)."""
     yolo_specs = [spec.layers[i] for i in spec.yolo_indices]
     if len(yolo_specs) != len(head_raw):
         raise ValueError(f"{len(head_raw)} heads for {len(yolo_specs)} yolo layers")
@@ -293,7 +310,8 @@ def network_loss(spec: NetSpec, head_raw: Sequence[Dict], targets: torch.Tensor,
     all_metrics = []
     for hspec, raw in zip(yolo_specs, head_raw):
         loss, metrics = head_loss(raw, hspec, targets, target_mask,
-                                  use_giou_loss=use_giou_loss, want_metrics=want_metrics)
+                                  use_giou_loss=use_giou_loss, want_metrics=want_metrics,
+                                  group=group)
         total = total + loss
         all_metrics.append(metrics)
     return total, all_metrics

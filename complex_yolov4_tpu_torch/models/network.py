@@ -44,6 +44,7 @@ kernel.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -57,7 +58,7 @@ from ..ops import fused_stage as fused_mod
 from ..ops import int8_conv as int8_mod
 from ..ops import stem_conv as stem_mod
 from ..ops.activations import act
-from .bn_train import BN_EPS, bn_train
+from .bn_train import BN_EPS, batch_count, bn_train
 from .quantize import chain_set
 from .spec import ConvSpec, MaxPoolSpec, NetSpec, RouteSpec, ShortcutSpec, UpsampleSpec, YoloSpec
 from .yolo_head import decode_head, decode_head_raw
@@ -245,6 +246,13 @@ class Darknet(nn.Module):
     def device(self) -> torch.device:
         return next(self.buffers()).device
 
+    def replicate(self, device) -> "Darknet":
+        """A copy of this network with its buffers on `device` (the
+        per-size route and segment caches rebuilt there at first use)."""
+        twin = copy.deepcopy(self).to(device)
+        twin._routes, twin._segments = {}, {}
+        return twin
+
     def segments(self, img_size: int) -> Dict[int, tuple]:
         """{start layer: (Segment, SegmentWeights)} of the fused segments at a
         square `img_size` ({} unless fused_stages); a segment that holds a
@@ -398,9 +406,10 @@ class TrainDarknet(nn.Module):
     lines 560-620, without batch packing).
 
     Per conv: the conv in `compute_dtype` (f32 accumulation; its output in
-    the compute dtype), then in bf16 the BN epilogue of `bn_train` (f32
-    batch statistics, bf16 residual) and in f32 plain batch statistics and
-    an f32 epilogue; the running statistics move by momentum 0.1 with the
+    the compute dtype), then the train-mode BN of `bn_train` (f32 batch
+    statistics, the normalize in f32, the residual in the compute dtype;
+    the same Function in both dtypes, with and without a process group);
+    the running statistics move by momentum 0.1 with the
     unbiased variance; convs without BN add their bias; the single-exp mish
     of `ops.activations`; the output cast to the compute dtype. The heads
     are decoded in f32 (`decode_head_raw`). No hand kernel runs here, as in
@@ -410,7 +419,14 @@ class TrainDarknet(nn.Module):
     HWIO there), ``layer{i}.b`` or ``layer{i}.bn_scale``/``.bn_bias``;
     buffers ``layer{i}.mean``/``.var``. `weights.to_train_state` and
     `weights.from_train_state` bridge the trees.
+
+    `process_group` (None, or set by `parallel.wrap_ddp`): the group whose
+    ranks' batches form the global batch. With one, train-mode BN takes the
+    global batch statistics and gradient (`bn_train`), as the JAX step on a
+    data mesh does.
     """
+
+    process_group = None
 
     def __init__(self, spec: NetSpec, *, compute_dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -436,15 +452,8 @@ class TrainDarknet(nn.Module):
             h = (h * inv.to(h.dtype)[None, :, None, None]
                  + (p.bn_bias - p.mean * inv).to(h.dtype)[None, :, None, None])
         elif layer.batch_normalize:
-            if cd == torch.bfloat16:
-                h, mean, var = bn_train(h, p.bn_scale, p.bn_bias)
-            else:
-                h = h.float()
-                mean = h.mean(dim=(0, 2, 3))
-                var = h.var(dim=(0, 2, 3), unbiased=False)
-                inv = torch.rsqrt(var + BN_EPS) * p.bn_scale
-                h = h * inv[None, :, None, None] + (p.bn_bias - mean * inv)[None, :, None, None]
-            n = h.shape[0] * h.shape[2] * h.shape[3]
+            n = batch_count(h, self.process_group)
+            h, mean, var = bn_train(h, p.bn_scale, p.bn_bias, self.process_group)
             if update_stats:
                 with torch.no_grad():
                     p.mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.detach())

@@ -11,6 +11,11 @@ joins that thread and re-raises its error. A write goes to a temporary
 file renamed into place, so an interrupted save never leaves half a file.
 `cli.common.load_weights` reads the parameters of such a file for
 `--pretrained_path`.
+
+Data parallel: the state is equal on every rank, so only the lead saves
+(`cli.train`); the other ranks wait for it at a barrier before they leave
+(`parallel.barrier`, bounded by the group's timeout). Every rank restores
+the same file onto its own device.
 """
 
 from __future__ import annotations
@@ -116,15 +121,15 @@ def latest_epoch(checkpoints_dir: str) -> Optional[int]:
     return max(epochs) if epochs else None
 
 
-def _load(path: str) -> Dict[str, Any]:
-    return torch.load(os.path.abspath(path), map_location="cpu", weights_only=False)
+def _load(path: str, map_location="cpu") -> Dict[str, Any]:
+    return torch.load(os.path.abspath(path), map_location=map_location, weights_only=False)
 
 
 def restore_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     """Load a checkpoint written by `save_checkpoint_async` into `state` (its
     module, optimizer and global_step, in place, on the state's device).
     Returns (state, epoch)."""
-    ck = _load(path)
+    ck = _load(path, map_location=state.device)
     spec = state.model.spec
     sd = weights.to_train_state(spec, ck["params"], ck["bn_state"])
     state.model.load_state_dict(sd)

@@ -12,14 +12,27 @@ loss and metrics stay on the device; the caller reads them when it wants
 them, as the JAX CLI does once per print window. f32 compute runs with TF32
 off (`network.precision_scope`). `remat` checkpoints the activations of
 the forward (`TrainDarknet.forward`), as the JAX step's `remat` does.
+
+Data parallel (`TrainState.ddp`, from `parallel.wrap_ddp`): the forward
+runs through DDP, BN and the loss's counts all-reduce over the model's
+`process_group`, and the rank's loss, times the world size, is what the
+backward differentiates, so that DDP's mean of the gradients is the
+global batch's gradient (`losses.yolo_loss`). The micro-batches that only
+accumulate run under `no_sync()`, so the gradients are all-reduced once per
+optimizer step. The reported loss and metrics are all-reduced, those of
+the global batch. Every rank runs the same number of micro-batches (equal
+shards), so `global_step` stays equal on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config import kitti as cnf
 from ..data import bev as bev_mod
@@ -32,11 +45,13 @@ from .optimizer import set_learning_rate
 class TrainState:
     """Everything the step mutates: the module (parameters and running BN
     statistics), the optimizer and `global_step`, which counts
-    micro-batches (as the JAX state's does)."""
+    micro-batches (as the JAX state's does); `ddp`, the module under DDP
+    when the step is data parallel."""
 
     model: TrainDarknet
     optimizer: torch.optim.Optimizer
     global_step: int = 0
+    ddp: Optional[DistributedDataParallel] = None
 
     @property
     def device(self) -> torch.device:
@@ -70,25 +85,37 @@ def make_train_step(*, use_giou_loss: bool = False, subdivisions: int = 1,
     def step(state: TrainState, batch: Dict, lr: float, img_size: int = 0,
              want_metrics: bool = True) -> Dict[str, torch.Tensor]:
         model, dev = state.model, state.device
+        group = model.process_group
         images = batch_images(batch, dev, img_size)
         targets = torch.as_tensor(batch["targets"], dtype=torch.float32, device=dev)
         tmask = torch.as_tensor(batch["target_mask"], dtype=torch.float32, device=dev)
         model.train()
+        apply = (state.global_step + 1) % k == 0
+        net, sync = model, contextlib.nullcontext()
+        if state.ddp is not None:
+            net = state.ddp
+            if not apply:
+                sync = state.ddp.no_sync()
         with precision_scope(model.compute_dtype, dev):
-            heads = model(images, remat=remat)
-            loss, head_metrics = network_loss(model.spec, heads, targets, tmask,
-                                              use_giou_loss=use_giou_loss,
-                                              want_metrics=want_metrics)
-            loss.backward()
+            with sync:
+                heads = net(images, remat=remat)
+                loss, head_metrics = network_loss(model.spec, heads, targets, tmask,
+                                                  use_giou_loss=use_giou_loss,
+                                                  want_metrics=want_metrics, group=group)
+                (loss if group is None else loss * dist.get_world_size(group)).backward()
             state.global_step += 1
-            if state.global_step % k == 0:
+            if apply:
                 set_learning_rate(state.optimizer, lr)
                 state.optimizer.step()
                 state.optimizer.zero_grad(set_to_none=True)
-        metrics = {"loss": loss.detach(), "lr": lr}
-        for h, hm in enumerate(head_metrics):
-            for name, v in hm.items():
-                metrics[f"head{h}/{name}"] = v.detach()
+        names = [(h, name) for h, hm in enumerate(head_metrics) for name in hm]
+        values = torch.stack([loss.detach()] + [head_metrics[h][name].detach()
+                                                for h, name in names])
+        if group is not None:
+            dist.all_reduce(values, group=group)
+        metrics = {"loss": values[0], "lr": lr}
+        for (h, name), v in zip(names, values[1:]):
+            metrics[f"head{h}/{name}"] = v
         return metrics
 
     return step

@@ -1,6 +1,12 @@
 """Shared helpers of the PyTorch port's parity tests (not a test module)."""
 
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
+import pytest
 import torch
 
 from complex_yolov4_tpu.models import get_model_spec
@@ -9,6 +15,9 @@ from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 
 CPU = torch.device("cpu")
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the bound on every child process of the data-parallel tests
+WORKER_TIMEOUT_S = 240
 
 
 def net_pair(name, size, dtype, seed=0):
@@ -53,3 +62,38 @@ def gap_threshold(conf, k, min_gap=1e-4):
             best = float(t)
     assert best is not None, "no usable confidence gap"
     return best
+
+
+def free_port() -> int:
+    s = socket.socket()
+    try:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+    finally:
+        s.close()
+
+
+def run_workers(script, args_of_rank, world=2, timeout=WORKER_TIMEOUT_S, cwd=_REPO):
+    """Start `world` processes `python <script> <args_of_rank(rank)>`, wait
+    for all within `timeout` seconds (killing every one when it runs out),
+    and return their outputs; fails on a non-zero exit. Each process gets 2
+    intra-op threads: the suite runs beside it on the same cores."""
+    env = dict(os.environ, PYTHONPATH=_REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, *script, *args_of_rank(r)], cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        pytest.fail(f"workers {script} did not finish in {timeout} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+    return outs

@@ -7,9 +7,9 @@
   checkpoint loads through `cli.evaluate --pretrained_path` into the same
   folded weights as the trained module's;
 - the default `cli.evaluate --device cpu` (f32 compute) runs;
-- `--num_processes 2` raises a ValueError naming its ROADMAP item, while
-  `--mosaic`, `--remat` and `--profile_steps` pass the flag check (their
-  runs: test_torch_port_mosaic.py, test_torch_port_remat.py); the TPU-link
+- `--num_processes 2`, `--mosaic`, `--remat` and `--profile_steps` pass
+  the flag check (their runs: test_torch_port_shard.py,
+  test_torch_port_mosaic.py, test_torch_port_remat.py); the TPU-link
   knobs are accepted and logged as not ported;
 - `--device cuda` raises without CUDA.
 """
@@ -83,12 +83,13 @@ def test_evaluate_cli_f32_default_on_cpu(root, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--mosaic",), None), (("--num_processes", "2"), "item 2"),
+    (("--mosaic",), None), (("--num_processes", "2"), None),
     (("--remat",), None), (("--profile_steps", "2"), None)],
     ids=["mosaic", "ddp", "remat", "profile"])
 def test_unported_flags_raise(root, tmp_path, flags, item):
-    """Of the flags that raised before they were ported, only
-    `--num_processes > 1` still raises, naming the DDP item."""
+    """The flags that raised before they were ported (the last of them
+    `--num_processes > 1`, data parallel) pass the flag check; an `item`
+    would name the ROADMAP item of a flag that still raises."""
     argv = _argv(root, str(tmp_path / "wd"), *flags)
     if item is not None:
         with pytest.raises(ValueError, match=f"ROADMAP.md §1 {item}"):
