@@ -176,14 +176,40 @@ fallback):
    f32 validation of the 24 val frames through the 3x3 kernel's f32
    instance (5 launches per batch of 2), no launch on rank 1, one log and
    one checkpoint, the lead's.
+9. export and tools (complex_yolov4 @608, full width, seed-0 weights) —
+   four processes of their own (`--export-pt2`, one a job, started
+   beside nvcc at the lowest CPU priority and waited for before phase 3,
+   so that they time no host work: tracing runs the custom ops' fake
+   implementations and needs no kernel) each build the weights once; three
+   trace and save with `cli.export.export_pt2`, what `cli.export --format
+   pt2` runs before its round trip, (a) the image input and (b) the points
+   input (20480 a frame), and the same with FUSED_STAGE=1, each at batch 8
+   with phase 4's thresholds (conf 0.5, nms 0.5, k=64); the fourth (c)
+   writes `--format darknet` and `--format ckpt` (`write_weights`), each
+   read back through `cli.common.load_weights` and held equal to the
+   weights; each prints its seconds by step (imports, weights, trace,
+   save, write, read), when it began and ended, and each file's MB.
+   Then a fresh process (`--serve-pt2`) that imports torch and the port's
+   ops only loads the three `.pt2` files (timed; the export's round trip)
+   and serves phase 4's 8 requests as rasters (image) and phase 5's 16 val
+   frames as padded points, the launch counts set to 0 after a warm-up
+   call: stem 1 and 3x3
+   5 per call, and with fused stages stem 1, 3x3 2 and fused stage 2. Its
+   detections are held to the eager `make_inference_fn` on the same weights
+   and inputs (the eager fused path for the fused artifact): keep sets
+   equal, boxes within 1e-3 px, and whether they are bit-equal is printed,
+   with the ms per batch (synced) of the loaded program beside eager's
+   over the same batches, each timed alone. (d) `cli.find_anchors` on
+   phase 6's train frames with `--device cuda` against `--device cpu`:
+   anchors within 1e-4, avg IoU within 1e-4.
 
 Each phase prints its wall time on a `[time]` line.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel JSON record (launches: the sum over the served, evaluated
-and tested runs of phases 4, 5, 7 and 8 (c), the f32 rows' over the f32
-runs of phases 6 and 8 (d)), and the line before that nvidia-smi's name
-and power limit.
+and tested runs of phases 4, 5, 7, 8 (c) and 9 (the exported programs'
+calls in the serving process), the f32 rows' over the f32 runs of phases
+6 and 8 (d)), and the line before that nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
@@ -302,6 +328,20 @@ DDP_BF16_LOSS_REL, DDP_BF16_NORM = 1e-2, 1.5
 # phase 8 (d): train frames of the two-process cli.train (2 micro-batches of
 # 2 per rank, one optimizer step); the lead validates phase 6's 24 val frames
 DDP_CLI_FRAMES = 8
+# phase 9: the exported artifacts (name, `export_pt2` arguments, FUSED_STAGE),
+# each exported for batch BATCH at 608 with phase 4's thresholds, and the
+# exporter's jobs (one process each: an artifact, or the weight formats); the kernel
+# launches per call; the bound on the exporter and server processes; the
+# detections' distance to the eager path's (px) and the anchors' and avg
+# IoU's distance between find_anchors on the card and on the CPU
+EXPORT_ARTIFACTS = (("image", {"input_kind": "image"}, False),
+                    ("points", {"input_kind": "points", "max_points": 20480}, False),
+                    ("points_fused", {"input_kind": "points", "max_points": 20480}, True))
+EXPORT_JOBS = tuple(name for name, _, _ in EXPORT_ARTIFACTS) + ("formats",)
+LAUNCHES_FUSED = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 0}
+EXPORT_TIMEOUT_S = 600
+EXPORT_BOX_TOL = 1e-3
+ANCHOR_TOL = 1e-4
 SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            F32_ROW: "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
@@ -2229,7 +2269,304 @@ def phase_ddp_serve(path1, dev):
     return got
 
 
+# ------------------------------------------------------------- phase 9 ----
+
+def export_artifacts(argv):
+    """Phase 9's exporter, one process per job (``chip_smoke.py --export-pt2
+    OUT_DIR JOB``), all started beside nvcc at the lowest CPU priority:
+    tracing runs the ops' fake implementations and needs no kernel. Each
+    builds complex_yolov4's seed-0 weights once. JOB is a name of
+    EXPORT_ARTIFACTS, (a, b): `cli.export.export_pt2` (what ``cli.export
+    --format pt2`` runs before its round trip; the server's load is this
+    artifact's) at batch BATCH, 608, phase 4's thresholds, into
+    OUT_DIR/<name>.pt2; or "formats", (c): `cli.export.write_weights` for
+    darknet and ckpt (what ``--format darknet|ckpt`` runs), each read back
+    through `cli.common.load_weights` and held equal to the weights. Prints
+    one JSON line after "[export] ": the job's seconds by step and the
+    wall-clock time it began its work and ended (`time.time()`)."""
+    import os
+
+    began = time.time()
+    os.nice(19)
+    out_dir, job = argv
+    t0 = time.perf_counter()
+    from complex_yolov4_tpu_torch.cli import common, export
+    from complex_yolov4_tpu_torch.models import weights, zoo
+
+    t1 = time.perf_counter()
+    spec = zoo.get_model_spec(MODEL)
+    params, state = weights.init_params_np(spec, SEED)
+    record = {"job": job, "began": began, "import_s": t1 - t0,
+              "weights_s": time.perf_counter() - t1, "cpus": len(os.sched_getaffinity(0))}
+    if job == "formats":
+        for fmt, ext in (("darknet", "weights"), ("ckpt", "ckpt")):
+            path = os.path.join(out_dir, f"model.{ext}")
+            t0 = time.perf_counter()
+            export.write_weights(fmt, spec, params, state, path)
+            t1 = time.perf_counter()
+            got_p, got_s = common.load_weights(spec, path)
+            record[fmt] = all(
+                set(got[k]) == set(ref[k]) and all(np.array_equal(np.asarray(got[k][leaf]),
+                                                                  np.asarray(ref[k][leaf]))
+                                                   for leaf in ref[k])
+                for got, ref in ((got_p, params), (got_s, state)) for k in ref) and (
+                set(got_p) == set(params) and set(got_s) == set(state))
+            record.update({f"{fmt}_mb": os.path.getsize(path) / 2 ** 20,
+                           f"{fmt}_write_s": t1 - t0,
+                           f"{fmt}_read_s": time.perf_counter() - t1})
+    else:
+        kwargs, fused = next((kw, f) for name, kw, f in EXPORT_ARTIFACTS if name == job)
+        if fused:
+            os.environ["FUSED_STAGE"] = "1"
+        record.update(export.export_pt2(
+            spec, params, state, os.path.join(out_dir, f"{job}.pt2"),
+            device=torch.device("cuda", 0), batch=BATCH, img_size=608, conf_thresh=0.5,
+            nms_thresh=0.5, max_boxes=64, **kwargs))
+    record["ended"] = time.time()
+    print("[export] " + json.dumps(record), flush=True)
+
+
+def start_exporters(tmp):
+    """Start one `export_artifacts` process per EXPORT_JOBS -> (processes,
+    OUT_DIR, the wall-clock time they started); job J logs to
+    OUT_DIR/export_J.log."""
+    import os
+
+    out_dir = os.path.join(tmp, "export_out")
+    os.makedirs(out_dir)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("FUSED_STAGE", None)
+    started, procs = time.time(), []
+    for job in EXPORT_JOBS:
+        with open(os.path.join(out_dir, f"export_{job}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--export-pt2", out_dir, job],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs, out_dir, started
+
+
+def wait_exporters(exporters):
+    """Wait for every exporter process (`_wait_proc`); returns the wall
+    seconds from their start to the last one's end."""
+    import os
+
+    procs, out_dir, started = exporters
+    for job, proc in zip(EXPORT_JOBS, procs):
+        _wait_proc(proc, os.path.join(out_dir, f"export_{job}.log"), f"exporter ({job})")
+    return time.time() - started
+
+
+def serve_artifacts(argv):
+    """Phase 9's server, a fresh process (``chip_smoke.py --serve-pt2
+    OUT_DIR``) that imports torch and the port's ops and nothing else of the
+    port: it loads each artifact with `torch.export.load` (timed), writes
+    OUT_DIR/ready, and waits for OUT_DIR/go (written once the main process
+    has timed the eager path). Then per artifact: one warm-up call on the
+    first batch of its inputs (OUT_DIR/<input>.pt), the launch counts set to
+    0, every batch served and synced (each timed), the counts read; the
+    detections go to OUT_DIR/out_<name>.pt. Prints one JSON line per
+    artifact after "[serve] "."""
+    import os
+
+    import complex_yolov4_tpu_torch.ops  # noqa: F401  (registers the custom ops)
+
+    out_dir = argv[0]
+    dev = torch.device("cuda", 0)
+    loaded, load_s = {}, {}
+    for name, _, _ in EXPORT_ARTIFACTS:
+        t0 = time.perf_counter()
+        loaded[name] = torch.export.load(os.path.join(out_dir, f"{name}.pt2")).module()
+        load_s[name] = time.perf_counter() - t0
+    _signal(os.path.join(out_dir, "ready"))
+    _wait_for_file(os.path.join(out_dir, "go"), EXPORT_TIMEOUT_S)
+    fns = counters()
+    for name, _, _ in EXPORT_ARTIFACTS:
+        batches = torch.load(os.path.join(out_dir, f"{name.split('_')[0]}.pt"))
+        prog = loaded[name]
+        with torch.no_grad():
+            prog(*(x.to(dev) for x in batches[0]))
+            torch.cuda.synchronize()
+            for fn in fns.values():
+                fn.launches = 0
+            outs, ms = [], []
+            for inputs in batches:
+                xs = [x.to(dev) for x in inputs]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets, masks = prog(*xs)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append((dets.cpu(), masks.cpu()))
+        torch.save(outs, os.path.join(out_dir, f"out_{name}.pt"))
+        print("[serve] " + json.dumps({"name": name, "load_s": load_s[name], "ms": ms,
+                                       "launches": {k: fn.launches for k, fn in fns.items()},
+                                       "calls": len(batches)}), flush=True)
+
+
+def _records(path, tag):
+    with open(path) as f:
+        out = f.read()
+    return out, [json.loads(line[len(tag):]) for line in out.splitlines()
+                 if line.startswith(tag)]
+
+
+def _wait_proc(proc, log, what):
+    """Wait for a phase-9 process within EXPORT_TIMEOUT_S (killed when it runs
+    out); raise, with the end of its log, if it failed."""
+    try:
+        proc.wait(timeout=EXPORT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 9: the {what} did not finish in {EXPORT_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        with open(log) as f:
+            print(f.read()[-6000:])
+        raise AssertionError(f"phase 9: the {what} exited {proc.returncode}")
+
+
+def phase_export(dev, exporter, roots, smi):
+    """Phase 9: the exported serving programs against the eager path, the
+    weight formats, and find_anchors on the card. Returns the artifacts'
+    launches by run."""
+    import os
+
+    from complex_yolov4_tpu_torch.cli import find_anchors
+    from complex_yolov4_tpu_torch.data import loader as ld
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+    from complex_yolov4_tpu_torch.models import weights, zoo
+    from complex_yolov4_tpu_torch.models.network import Darknet
+
+    _, out_dir, started = exporter  # every exporter ended before phase 3 (`main`)
+    exp = {job: _records(os.path.join(out_dir, f"export_{job}.log"), "[export] ")[1][-1]
+           for job in EXPORT_JOBS}
+    for job, t in exp.items():
+        print(f"[export] job {job}: started {t['began'] - started:.2f} s after the launch, "
+              f"imports {t['import_s']:.2f} s, seed-0 weights {t['weights_s']:.2f} s, ended "
+              f"{t['ended'] - started:.2f} s after the launch ({t['cpus']} CPUs; beside nvcc, "
+              f"at the lowest CPU priority; {smi})")
+    for name, _, fused in EXPORT_ARTIFACTS:
+        t = exp[name]
+        print(f"[export] {name}{' (FUSED_STAGE=1)' if fused else ''}: cli.export export_pt2 "
+              f"{MODEL} @608 batch {BATCH}: trace {t['export_s']:.2f} s, save "
+              f"{t['save_s']:.2f} s, {t['mb']:.1f} MB ({smi})")
+    t = exp["formats"]
+    print(f"[export] (c) darknet ({t['darknet_mb']:.1f} MB, write {t['darknet_write_s']:.2f} s, "
+          f"read {t['darknet_read_s']:.2f} s) read back equal: {t['darknet']}; ckpt "
+          f"({t['ckpt_mb']:.1f} MB, write {t['ckpt_write_s']:.2f} s, read "
+          f"{t['ckpt_read_s']:.2f} s) read back equal: {t['ckpt']} ({smi})")
+    if not (t["darknet"] and t["ckpt"]):
+        raise AssertionError("phase 9 (c): a weight format did not read back equal")
+
+    # inputs: phase 4's 8 requests as rasters; phase 5's val frames as padded points
+    images = [(raster(host_coo(make_scenes(r)), dev, BATCH).cpu(),) for r in range(REQUESTS)]
+    points = [(torch.as_tensor(b["points"]), torch.as_tensor(b["point_mask"]))
+              for b in ld.create_val_loader(roots["eval"], BATCH, device_raster=True)]
+    torch.save(images, os.path.join(out_dir, "image.pt"))
+    torch.save(points, os.path.join(out_dir, "points.pt"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    serve_log = os.path.join(out_dir, "serve.log")
+    with open(serve_log, "w") as f:
+        server = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-pt2",
+                                   out_dir], cwd=here, env=env, stdout=f,
+                                  stderr=subprocess.STDOUT)
+    try:
+        spec = zoo.get_model_spec(MODEL)
+        params, state = weights.init_params_np(spec, SEED)
+        st = weights.from_folded(spec, weights.fold_batchnorm(spec, params, state))
+        models = {False: Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev),
+                  True: Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev,
+                                fused_stages=True)}
+        zeros = {"flip": torch.zeros((BATCH,)), "holes": torch.zeros((BATCH, 0, 5)),
+                 "hole_mask": torch.zeros((BATCH, 0))}
+        eager_out, eager_ms = {}, {}
+        for name, _, fused in EXPORT_ARTIFACTS:
+            from_points = name != "image"
+            infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64,
+                                      from_points=from_points)
+
+            def run(inputs, model=models[fused], infer=infer, from_points=from_points):
+                xs = [x.to(dev) for x in inputs]
+                if from_points:
+                    xs += [v.to(dev) for v in zeros.values()]
+                return infer(model, *xs)
+
+            batches = points if from_points else images
+            eager_out[name] = [tuple(t.cpu() for t in run(b)) for b in batches]
+        _wait_for_file(os.path.join(out_dir, "ready"), EXPORT_TIMEOUT_S)
+        for name, _, fused in EXPORT_ARTIFACTS:  # timed while the server waits
+            from_points = name != "image"
+            infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64,
+                                      from_points=from_points)
+            ms = []
+            for inputs in (points if from_points else images):
+                xs = [x.to(dev) for x in inputs]
+                if from_points:
+                    xs += [v.to(dev) for v in zeros.values()]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                infer(models[fused], *xs)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            eager_ms[name] = ms
+        del models
+        torch.cuda.empty_cache()
+        _signal(os.path.join(out_dir, "go"))
+        _wait_proc(server, serve_log, "server")
+    except BaseException:
+        server.kill()
+        server.wait()
+        raise
+    _, served = _records(serve_log, "[serve] ")
+    runs, failed = {}, []
+    for rec in served:
+        name = rec["name"]
+        fused = dict((n, f) for n, _, f in EXPORT_ARTIFACTS)[name]
+        got = torch.load(os.path.join(out_dir, f"out_{name}.pt"))
+        want = eager_out[name]
+        keep_equal = all(torch.equal(gm, wm) for (_, gm), (_, wm) in zip(got, want))
+        err = max(float((gd - wd).abs().max()) for (gd, _), (wd, _) in zip(got, want))
+        bit_equal = keep_equal and err == 0.0
+        per_call = LAUNCHES_FUSED if fused else LAUNCHES_PATH1
+        want_l = {k: v * rec["calls"] for k, v in per_call.items()}
+        live = [int(m.sum()) for _, m in got]
+        warm_pt2, warm_eager = float(np.mean(rec["ms"])), float(np.mean(eager_ms[name]))
+        print(f"[export] (a, b) {name}: loaded in a fresh process in {rec['load_s']:.2f} s; "
+              f"{rec['calls']} batches of {BATCH}: launches {rec['launches']} (want {want_l}); "
+              f"live detections per batch {live}; keep sets equal to the eager "
+              f"make_inference_fn: {keep_equal}, max |box diff| {err:.3g} px (tol "
+              f"{EXPORT_BOX_TOL}), bit-equal {bit_equal}; ms per batch (synced) loaded program "
+              + " ".join(f"{x:.3f}" for x in rec["ms"]) + f" (mean {warm_pt2:.3f}), eager "
+              + " ".join(f"{x:.3f}" for x in eager_ms[name])
+              + f" (mean {warm_eager:.3f}; both warm: every batch was served once before; "
+              f"{smi})")
+        if rec["launches"] != want_l or not keep_equal or err > EXPORT_BOX_TOL or not sum(live):
+            failed.append(name)
+        runs[f"export pt2 {name}"] = rec["launches"]
+    if failed or len(served) != len(EXPORT_ARTIFACTS):
+        raise AssertionError(f"phase 9: exported programs {failed} differ from the eager path "
+                             "or missed a kernel")
+
+    # (d) find_anchors on the card against the CPU
+    t0 = time.perf_counter()
+    a_gpu, iou_gpu = find_anchors.main(["--dataset_dir", roots["train"], "--device", "cuda"])
+    t1 = time.perf_counter()
+    a_cpu, iou_cpu = find_anchors.main(["--dataset_dir", roots["train"], "--device", "cpu"])
+    t2 = time.perf_counter()
+    a_err = float(np.abs(a_gpu - a_cpu).max())
+    print(f"[export] (d) find_anchors on phase 6's {TRAIN_FRAMES} train frames: anchors "
+          f"cuda vs cpu max |diff| {a_err:.3g} (tol {ANCHOR_TOL}), avg IoU {iou_gpu:.6f} vs "
+          f"{iou_cpu:.6f}; {t1 - t0:.2f} s on cuda, {t2 - t1:.2f} s on cpu ({smi})")
+    if a_err > ANCHOR_TOL or abs(iou_gpu - iou_cpu) > ANCHOR_TOL:
+        raise AssertionError("phase 9 (d): find_anchors on the card differs from the CPU")
+    return runs
+
+
 def main() -> None:
+    import os
+
     t_start = clock = time.perf_counter()
 
     def lap(what):
@@ -2251,13 +2588,18 @@ def main() -> None:
     # phase 8's gloo pair starts now: its imports, group and weights take
     # host time beside nvcc, and it waits for phase 8 on the card
     ranks = start_ddp_ranks(tmp)
+    # phase 9's exporters trace the serving programs beside nvcc too
+    exporter = start_exporters(tmp)
     try:
         with ThreadPoolExecutor(max_workers=1) as pool:
             host = pool.submit(host_side, tmp)
             phase_build()
             roots = host.result()  # raises if g++ failed or a native check did
         dynamo.join()
-        lap("phases 1-2 (device, build; phase 7 a, b, d and phase 8's gloo pair beside it)")
+        # the exporters must be done before the phases that time the host
+        export_s = wait_exporters(exporter)
+        lap(f"phases 1-2 (device, build; phase 7 a, b, d, phase 8's gloo pair and phase 9's "
+            f"exporters beside it, the last exporter done {export_s:.1f} s after their start)")
         records = phase_kernels(dev)
         lap("phase 3 (stem and 3x3 kernels)")
         records["fused_stage"] = phase_fused(dev)
@@ -2288,12 +2630,14 @@ def main() -> None:
         f32_runs["ddp cli.train (lead's f32 validation)"] = phase_ddp_gloo(
             dev, ranks, roots["train"])
         lap("phase 8 (a: NCCL, one rank; b, d: the gloo pair)")
+        runs.update(phase_export(dev, exporter, roots, smi))
+        lap("phase 9 (export and tools)")
     except BaseException:
-        kill_ranks(ranks[0])
+        kill_ranks(ranks[0] + exporter[0])
         raise
     finally:
         tmp_dir.cleanup()
-    print(f"[time] phases 1-8: {time.perf_counter() - t_start:.1f} s")
+    print(f"[time] phases 1-9: {time.perf_counter() - t_start:.1f} s")
     kernels = []
     f32_of = {F32_ROW: "conv3x3_fused", INT8_F32_ROW: "int8_conv"}
     for k in KERNEL_NAMES + tuple(f32_of):
@@ -2313,7 +2657,7 @@ def main() -> None:
         kernels.append(row)
     print("[kernels] launches per run: " + "; ".join(
         f"{name} {run}" for name, run in {**runs, **f32_runs}.items()))
-    print("[kernels] launches: the bf16 runs of phases 4, 5, 7 and 8 (c) together, and for "
+    print("[kernels] launches: the bf16 runs of phases 4, 5, 7, 8 (c) and 9 together, and for "
           f"{F32_ROW} and {INT8_F32_ROW} the f32 runs of phases 6 and 8 (d); ms, plain_ms, "
           "bound_ms and "
           "library_ms: per request of 8 frames, summed over the main-path layers each kernel "
@@ -2330,5 +2674,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         ddp_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["--export-pt2"]:
+        export_artifacts(sys.argv[2:])
+    elif sys.argv[1:2] == ["--serve-pt2"]:
+        serve_artifacts(sys.argv[2:])
     else:
         main()

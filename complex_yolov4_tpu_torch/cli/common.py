@@ -50,9 +50,11 @@ def load_weights(spec: NetSpec, path: str) -> Tuple[dict, dict]:
         return wio.load_torch_state_dict(spec, path)
     if os.path.isdir(path):
         raise ValueError(
-            f"{path!r} is a checkpoint directory (orbax): the port does not read "
-            "orbax checkpoints yet; pass a darknet .weights, a torch .pth or a "
-            "train checkpoint .ckpt file")
+            f"{path!r} is a checkpoint directory (orbax), which the port does not read: "
+            "convert it with the JAX package's exporter, `python -m "
+            "complex_yolov4_tpu.cli.export --pretrained_path DIR --format darknet "
+            "--output model.weights`, and pass the .weights file (or write a .ckpt "
+            "with the port's `cli.export --format ckpt` from that .weights)")
     raise ValueError(f"unrecognized checkpoint format: {path!r}")
 
 

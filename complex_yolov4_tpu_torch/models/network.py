@@ -31,6 +31,11 @@ Kernel routing, mirroring the JAX executor, in this order of precedence:
   only (its f32 instance takes and gives f32). The JAX executor runs its
   Pallas conv only on an accelerator (`_use_pallas_default`), so an f32
   model on the CPU convolves in full f32, as XLA does there.
+The stem, 3x3 and fused-stage kernels are reached only through their
+`torch.library` custom ops (``cyv4::stem_conv3x3``, ``cyv4::conv3x3``,
+``cyv4::fused_stage``, called by the wrappers), one path for eager calls
+and for `torch.export` (`cli.export`), which traces a bf16 forward without
+a host read; the int8 conv is a plain wrapper (no export path runs it).
 int8 runs in either compute dtype (its f32 output mode, `network.py:496`);
 fused stages in bf16 only. An f32 forward on CUDA runs with TF32 off
 (`no_tf32`), so that cuDNN's convs compute in f32 as XLA's do.

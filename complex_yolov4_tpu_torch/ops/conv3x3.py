@@ -7,12 +7,16 @@ gives a bf16 output; an f32 x is rounded to bf16 for the products
 (`pallas_conv.py:140`) and gives an f32 output (`:161`). On the early
 backbone of complex_yolov4 at 608 it takes layers 1, 6, 11, 16 and 19.
 
-`conv3x3_fused` is the wrapper: a CUDA tensor goes to the hand-written
-Hopper kernel (`csrc/conv3x3.cu`, `cyv4_conv3x3` for bf16,
-`cyv4_conv3x3_f32` for f32) or the call raises; a CPU tensor goes to
-`conv3x3_plain`, the plain PyTorch version of the same function (im2col by
-slicing, then one f32 matmul of the bf16-rounded operands), which the CPU
-tests hold against the Pallas kernel.
+The kernel is the `torch.library` custom op ``cyv4::conv3x3`` (one op for
+both dtypes), so that `torch.export` can trace a network that calls it:
+its CUDA implementation launches the hand-written Hopper kernel
+(`csrc/conv3x3.cu`, `cyv4_conv3x3` for bf16, `cyv4_conv3x3_f32` for f32)
+or raises; its CPU implementation is `conv3x3_plain`, the plain PyTorch
+version of the same function (im2col by slicing, then one f32 matmul of
+the bf16-rounded operands), which the CPU tests hold against the Pallas
+kernel; its fake implementation checks the operands and gives the output's
+shape and dtype, and builds nothing. `conv3x3_fused` is the wrapper that
+calls the op.
 """
 
 from __future__ import annotations
@@ -108,21 +112,32 @@ def check_operands(x, w_packed, bias, stride, activation, x_dtype, envelope):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
-                  *, stride: int = 1, activation: str = "leaky") -> torch.Tensor:
-    """y = act(conv3x3_pad1(x, w) + bias), NHWC, out in x's dtype.
+OP = "cyv4::conv3x3"
+torch.library.define(OP, "(Tensor x, Tensor w_packed, Tensor bias, int stride, "
+                         "str activation) -> Tensor")
 
-    Args:
-      x: (B, H, W, C_in) bfloat16 or float32 (rounded to bf16 for the
-        products), contiguous.
-      w_packed: (9*C_in, C_out) bfloat16 from `pack_weight`.
-      bias: (C_out,) float32.
-    Returns (B, H/stride, W/stride, C_out) of x's dtype.
-    """
+
+def _check(x, w_packed, bias, stride, activation):
     check_operands(x, w_packed, bias, stride, activation, (torch.bfloat16, torch.float32),
                    lambda h, w, ci, co, s: shape_ok(h, w, ci, co, 3, s))
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w_packed, bias, stride=stride, activation=activation)
+
+
+@torch.library.register_fake(OP)
+def _fake(x, w_packed, bias, stride, activation):
+    _check(x, w_packed, bias, stride, activation)
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h // stride, w // stride, w_packed.shape[1]))
+
+
+@torch.library.impl(OP, "CPU")
+def _cpu(x, w_packed, bias, stride, activation):
+    _check(x, w_packed, bias, stride, activation)
+    return conv3x3_plain(x, w_packed, bias, stride=stride, activation=activation)
+
+
+@torch.library.impl(OP, "CUDA")
+def _cuda(x, w_packed, bias, stride, activation):
+    _check(x, w_packed, bias, stride, activation)
     # the kernel is built for C_in 32, 64 and 128 (the main path's are 32
     # and 64); any other C_in is zero-padded to the next of them
     x, w_packed = pad_channels(x, w_packed, next(c for c in (32, 64, 128) if c >= x.shape[-1]))
@@ -137,6 +152,24 @@ def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     _build.check(code, "cyv4_conv3x3" if x.dtype == torch.bfloat16 else "cyv4_conv3x3_f32")
     conv3x3_fused.launches += 1
     return out
+
+
+_op = torch.ops.cyv4.conv3x3.default
+
+
+def conv3x3_fused(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
+                  *, stride: int = 1, activation: str = "leaky") -> torch.Tensor:
+    """y = act(conv3x3_pad1(x, w) + bias), NHWC, out in x's dtype: the op
+    ``cyv4::conv3x3``.
+
+    Args:
+      x: (B, H, W, C_in) bfloat16 or float32 (rounded to bf16 for the
+        products), contiguous.
+      w_packed: (9*C_in, C_out) bfloat16 from `pack_weight`.
+      bias: (C_out,) float32.
+    Returns (B, H/stride, W/stride, C_out) of x's dtype.
+    """
+    return _op(x, w_packed, bias, stride, activation)
 
 
 conv3x3_fused.launches = 0  # kernel launches, read by chip_smoke.py

@@ -18,9 +18,17 @@ keeps every intermediate on chip, and writes only the segment output.
   layout of the Pallas kernel: bf16 values, f32 accumulation, the conv
   epilogue cast to bf16 before a bf16 activation (`seg_act`, the kernel's
   own formulas), zero padding before each 3x3.
-- `apply_segment` is the wrapper: a CPU tensor takes the plain version; a
-  CUDA tensor launches `cyv4_fused_stage` (`csrc/fused_stage.cu`) or the
-  call raises.
+- The kernel is the `torch.library` custom op ``cyv4::fused_stage``. Its
+  arguments alone determine a launch, so that a program exported with
+  `torch.export` runs in a process that planned nothing: the input, the
+  packed weights and biases, the int32 op table (`Program`), the
+  segment's ops as an int list (`segment_code`) and the tile (window
+  height and width, halo, shared-memory bytes). Its CUDA implementation
+  launches `cyv4_fused_stage` (`csrc/fused_stage.cu`) or raises; its CPU
+  implementation decodes the segment and runs the plain version; its fake
+  implementation checks the operands against the code and gives the
+  output's shape, and builds nothing.
+- `apply_segment` is the wrapper that calls the op.
 
 The TPU's width-packed `packed2` layout is a lane-layout rewrite of the same
 function and is not ported.
@@ -28,6 +36,7 @@ function and is not ported.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -457,7 +466,7 @@ class SegmentWeights(NamedTuple):
     w_flat: torch.Tensor
     b_flat: torch.Tensor
     program: torch.Tensor
-    layout: Program
+    layout: Optional[Program]      # None where the plain version alone reads them
 
 
 def segment_weights(seg: Segment, state: Mapping[str, torch.Tensor]) -> SegmentWeights:
@@ -535,41 +544,131 @@ def fused_stage_plain(seg: Segment, x: torch.Tensor, weights: SegmentWeights) ->
     return vals[len(seg.ops) - 1].contiguous()
 
 
-def _check(seg: Segment, x: torch.Tensor, weights: SegmentWeights) -> None:
+# ------------------------------------------------------ the custom op ----
+
+KINDS = ("conv1x1", "conv3x3", "shortcut", "concat", "slice", "identity")
+CODE_HEAD = 3                      # cin, cout, number of ops
+OP_FIELDS = 7                      # kind, act, cin, cout, groups, group id, sources
+
+
+@functools.lru_cache(maxsize=64)
+def segment_code(seg: Segment) -> Tuple[int, ...]:
+    """The segment as the op's int list: (cin, cout, number of ops), then
+    per op (kind, activation code, cin, cout, groups, group id, number of
+    sources, the sources...), with the kinds of `KINDS` and the activation
+    codes of `ACT_CODES`; a source is an op index, -1 the segment input.
+    `decode_segment` inverts it (layer indices aside)."""
+    code = [seg.cin, seg.cout, len(seg.ops)]
+    for op in seg.ops:
+        code += [KINDS.index(op.kind), ACT_CODES[op.activation], op.cin, op.cout,
+                 op.groups, op.group_id, len(op.srcs), *op.srcs]
+    return tuple(code)
+
+
+@functools.lru_cache(maxsize=64)
+def decode_segment(code: Tuple[int, ...]) -> Segment:
+    """The `Segment` of `segment_code` (its ops' layer indices 0..n-1)."""
+    acts = {v: k for k, v in ACT_CODES.items()}
+    cin, cout, n = code[:CODE_HEAD]
+    ops, at = [], CODE_HEAD
+    for i in range(n):
+        kind, act, c_in, c_out, groups, gid, n_src = code[at:at + OP_FIELDS]
+        srcs = tuple(code[at + OP_FIELDS:at + OP_FIELDS + n_src])
+        at += OP_FIELDS + n_src
+        ops.append(SegOp(kind=KINDS[kind], srcs=srcs, layer_index=i, activation=acts[act],
+                         cin=c_in, cout=c_out, groups=groups, group_id=gid))
+    if at != len(code):
+        raise ValueError(f"segment code of {len(code)} ints, {at} read")
+    return Segment(start=0, end=n - 1, ops=tuple(ops), halo=_halo(ops), cin=cin, cout=cout)
+
+
+def _conv_sizes(seg: Segment):
+    """(weight elements, bias elements) of each conv, in op order."""
+    return [((9 if o.kind == "conv3x3" else 1) * o.cin * o.cout, o.cout)
+            for o in seg.ops if o.kind in ("conv1x1", "conv3x3")]
+
+
+def _check(seg: Segment, x, w_flat, b_flat, program) -> None:
     if x.dim() != 4 or x.shape[-1] != seg.cin:
         raise ValueError(f"x must be (B, H, W, {seg.cin}), got {tuple(x.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x must be bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NHWC)")
-    n_convs = sum(1 for o in seg.ops if o.kind in ("conv1x1", "conv3x3"))
-    if len(weights.convs) != n_convs:
-        raise ValueError(f"segment has {n_convs} convs, weights {len(weights.convs)}")
-    if not (x.device == weights.w_flat.device == weights.b_flat.device
-            == weights.program.device):
+    sizes = _conv_sizes(seg)
+    w_n = sum(w + -w % 16 for w, _ in sizes)
+    b_n = sum(b for _, b in sizes)
+    if tuple(w_flat.shape) != (w_n,) or tuple(b_flat.shape) != (b_n,):
+        raise ValueError(f"segment of {len(sizes)} convs takes {w_n} weights and {b_n} biases, "
+                         f"got {tuple(w_flat.shape)} and {tuple(b_flat.shape)}")
+    if w_flat.dtype != torch.bfloat16 or b_flat.dtype != torch.float32 \
+            or program.dtype != torch.int32:
+        raise TypeError("w_flat must be bf16, b_flat f32 and program int32")
+    if not (x.device == w_flat.device == b_flat.device == program.device):
         raise ValueError("x and the segment weights must lie on one device")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def apply_segment(seg: Segment, x: torch.Tensor, weights: SegmentWeights) -> torch.Tensor:
-    """Run one fused segment: x (B, H, W, C_in) bf16 NHWC -> (B, H, W,
-    C_out) bf16. `weights` from `segment_weights(seg, ...)`."""
-    _check(seg, x, weights)
-    if x.device.type == "cpu":
-        return fused_stage_plain(seg, x, weights)
-    b_sz, h, w, c_in = x.shape
-    lay = weights.layout
-    out = torch.empty((b_sz, h, w, seg.cout), dtype=torch.bfloat16, device=x.device)
+def _unpack(seg: Segment, w_flat, b_flat):
+    """The (w, bias) of each conv of `segment_weights`' flat packing."""
+    convs, wn, bn = [], 0, 0
+    for op, (w_elems, b_elems) in zip((o for o in seg.ops
+                                       if o.kind in ("conv1x1", "conv3x3")), _conv_sizes(seg)):
+        rows = w_elems // op.cout
+        convs.append((w_flat[wn:wn + w_elems].reshape(rows, op.cout), b_flat[bn:bn + b_elems]))
+        wn += w_elems + -w_elems % 16
+        bn += b_elems
+    return tuple(convs)
+
+
+OP = "cyv4::fused_stage"
+torch.library.define(OP, "(Tensor x, Tensor w_flat, Tensor b_flat, Tensor program, "
+                         "int[] code, int[] tile) -> Tensor")
+
+
+@torch.library.register_fake(OP)
+def _fake(x, w_flat, b_flat, program, code, tile):
+    seg = decode_segment(tuple(code))
+    _check(seg, x, w_flat, b_flat, program)
+    return x.new_empty((*x.shape[:3], seg.cout))
+
+
+@torch.library.impl(OP, "CPU")
+def _cpu(x, w_flat, b_flat, program, code, tile):
+    seg = decode_segment(tuple(code))
+    _check(seg, x, w_flat, b_flat, program)
+    weights = SegmentWeights(_unpack(seg, w_flat, b_flat), w_flat, b_flat, program, None)
+    return fused_stage_plain(seg, x, weights)
+
+
+@torch.library.impl(OP, "CUDA")
+def _cuda(x, w_flat, b_flat, program, code, tile):
+    cin, cout = code[0], code[1]
+    _check(decode_segment(tuple(code)), x, w_flat, b_flat, program)
+    win_h, win_w, halo, smem_bytes = tile
+    b_sz, h, w, _ = x.shape
+    out = torch.empty((b_sz, h, w, cout), dtype=torch.bfloat16, device=x.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.cyv4_fused_stage(x.data_ptr(), weights.w_flat.data_ptr(),
-                                weights.b_flat.data_ptr(), weights.program.data_ptr(),
-                                out.data_ptr(), b_sz, h, w, c_in, seg.cout,
-                                lay.win_h, lay.win_w, lay.halo, lay.smem_bytes, stream)
-    _build.check(code, "cyv4_fused_stage")
+    err = lib.cyv4_fused_stage(x.data_ptr(), w_flat.data_ptr(), b_flat.data_ptr(),
+                               program.data_ptr(), out.data_ptr(), b_sz, h, w, cin, cout,
+                               win_h, win_w, halo, smem_bytes, stream)
+    _build.check(err, "cyv4_fused_stage")
     apply_segment.launches += 1
     return out
+
+
+_op = torch.ops.cyv4.fused_stage.default
+
+
+def apply_segment(seg: Segment, x: torch.Tensor, weights: SegmentWeights) -> torch.Tensor:
+    """Run one fused segment: x (B, H, W, C_in) bf16 NHWC -> (B, H, W,
+    C_out) bf16, through the op ``cyv4::fused_stage``. `weights` from
+    `segment_weights(seg, ...)`."""
+    lay = weights.layout
+    return _op(x, weights.w_flat, weights.b_flat, weights.program, list(segment_code(seg)),
+               [lay.win_h, lay.win_w, lay.halo, lay.smem_bytes])
 
 
 apply_segment.launches = 0  # kernel launches, read by chip_smoke.py

@@ -14,10 +14,19 @@ Counterpart of `complex_yolov4_tpu/ops/nms.py` (`_candidates`,
 
 The pairwise IoU runs on the upper-triangle pair list, and the greedy keep
 set is the same exact fixpoint as the JAX package's: box i is kept iff no
-higher-ranked kept box suppresses it, so statuses resolve in rounds. A flat
-`torch.topk` and a plain index gather replace the TPU's hierarchical top-k
-and one-hot matmul gather. Score ties may order differently from the JAX
-package's top-k; ties carry no semantics.
+higher-ranked kept box suppresses it, so statuses resolve in rounds, until
+every candidate is decided or after k rounds, as the JAX package's
+`lax.while_loop` runs them. One loop body serves two drivers: under
+`torch.export` the rounds run in one `while_loop` (the higher-order op of
+`torch._higher_order_ops`), one node of the graph, so an exported program
+keeps the early exit; eagerly a Python `while` runs the same condition and
+body with one host read a round, which dispatches faster than the
+higher-order op's eager form. JAX applies 8 rounds an iteration (a TPU
+loop iteration is dear); here an iteration applies one, since a serving
+request mostly resolves in one round and an idle round costs a dozen
+kernel launches. A flat `torch.topk` and a plain index gather replace the
+TPU's hierarchical top-k and one-hot matmul gather. Score ties may order
+differently from the JAX package's top-k; ties carry no semantics.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from . import rotated_boxes as rb
 
@@ -59,6 +69,39 @@ def _suppress_matrix(cand: torch.Tensor, nms_thresh: float) -> torch.Tensor:
     return (iou > nms_thresh) & same_cls
 
 
+def _undecided_left(keep, undecided, it, blocker):
+    """The loop's condition: a candidate undecided, and fewer than k rounds
+    run (never binding: k rounds decide every candidate)."""
+    return undecided.any() & (it < blocker.shape[-1])
+
+
+def _rounds(keep, undecided, it, blocker):
+    """One fixpoint round: an undecided candidate is kept when no kept or
+    undecided candidate above it blocks it, and rejected when a kept one
+    does. The loop carries the undecided set itself, so that a round costs
+    as few ops as the greedy rule needs."""
+    live_blocker = blocker & (keep | undecided)[:, :, None]
+    kept = undecided & ~live_blocker.any(dim=1)
+    keep = keep | kept
+    rejected = (blocker & keep[:, :, None]).any(dim=1)
+    return keep, undecided & ~(kept | rejected), it + 1
+
+
+def _keep_set(valid: torch.Tensor, blocker: torch.Tensor) -> torch.Tensor:
+    """The exact greedy keep set (B, k) by fixpoint rounds; each round
+    decides at least the highest-ranked undecided candidate, so k rounds
+    always suffice. Exported, one `while_loop` whose extra input is
+    `blocker` (a tensor it closed over would not export); eagerly, a Python
+    loop over the same condition and body."""
+    carry = (torch.zeros_like(valid), valid,
+             torch.zeros((), dtype=torch.int64, device=valid.device))
+    if torch.compiler.is_exporting():
+        return while_loop_op(_undecided_left, _rounds, carry, (blocker,))[0]
+    while bool(_undecided_left(*carry, blocker)):
+        carry = _rounds(*carry, blocker)
+    return carry[0]
+
+
 def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
               nms_thresh: float = 0.4, max_boxes: int = 256
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,17 +119,7 @@ def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
     # blocker[b, j, i]: candidate j outranks i and suppresses it
     blocker = suppress & (idx[:, None] < idx[None, :])
 
-    # Exact greedy keep set by fixpoint rounds; each round decides at least
-    # the highest-ranked undecided candidate, so k rounds always suffice.
-    keep = torch.zeros((b, k), dtype=torch.bool, device=dev)
-    reject = torch.zeros_like(keep)
-    for _ in range(k):
-        undecided = valid & ~keep & ~reject
-        if not bool(undecided.any()):
-            break
-        live_blocker = blocker & (keep | undecided)[:, :, None]
-        keep = keep | (undecided & ~live_blocker.any(dim=1))
-        reject = reject | (undecided & (blocker & keep[:, :, None]).any(dim=1))
+    keep = _keep_set(valid, blocker)
 
     # Absorption: keeper i absorbs j iff i is the highest-ranked keeper
     # suppressing j; merged coordinates are the conf-weighted mean. The sum
@@ -106,3 +139,11 @@ def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
     mask = torch.zeros((b, max_boxes), dtype=decoded.dtype, device=dev)
     mask[:, :k] = kept
     return out, mask
+
+
+def nms_single(decoded: torch.Tensor, conf_thresh: float = 0.95,
+               nms_thresh: float = 0.4, max_boxes: int = 256
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NMS for one image: (N, 7+C) -> ((max_boxes, 9), (max_boxes,))."""
+    out, mask = nms_batch(decoded[None], conf_thresh, nms_thresh, max_boxes)
+    return out[0], mask[0]

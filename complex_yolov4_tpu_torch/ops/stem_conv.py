@@ -5,10 +5,13 @@ y = act(conv3x3_pad1_s1(x, w) + b) with x the f32 raster (rounded to bf16
 before the products), bf16 weights, f32 accumulation, f32 bias and
 activation, bf16 output. On complex_yolov4 it takes layer 0 (3 -> 32, mish).
 
-`conv3x3_stem` is the wrapper: a CUDA tensor goes to the hand-written
-Hopper kernel (`csrc/conv3x3.cu`, `cyv4_stem_conv3x3`) or the call raises; a
-CPU tensor goes to `stem_plain`, the plain PyTorch version (im2col by
-slicing, then one f32 matmul of the bf16-rounded operands).
+The kernel is the `torch.library` custom op ``cyv4::stem_conv3x3``: its
+CUDA implementation launches the hand-written Hopper kernel
+(`csrc/conv3x3.cu`, `cyv4_stem_conv3x3`) or raises; its CPU implementation
+is `stem_plain`, the plain PyTorch version (im2col by slicing, then one
+f32 matmul of the bf16-rounded operands); its fake implementation checks
+the operands and gives the output's shape and dtype, for `torch.export`,
+and builds nothing. `conv3x3_stem` is the wrapper that calls the op.
 """
 
 from __future__ import annotations
@@ -37,20 +40,30 @@ def stem_plain(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     return conv3x3_plain(x, w_packed, bias, stride=1, activation=activation).to(torch.bfloat16)
 
 
-def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
-                 *, activation: str = "mish") -> torch.Tensor:
-    """y = act(conv3x3_pad1_s1(x, w) + bias) for tiny C_in.
+OP = "cyv4::stem_conv3x3"
+torch.library.define(OP, "(Tensor x, Tensor w_packed, Tensor bias, str activation) -> Tensor")
 
-    Args:
-      x: (B, H, W, C_in) float32 raster, contiguous.
-      w_packed: (9*C_in, C_out) bfloat16 from `conv3x3.pack_weight`.
-      bias: (C_out,) float32.
-    Returns (B, H, W, C_out) bfloat16.
-    """
+
+def _check(x, w_packed, bias, activation):
     check_operands(x, w_packed, bias, 1, activation, (torch.float32,),
                    lambda h, w, ci, co, s: shape_ok(ci, co, 3, s))
-    if x.device.type == "cpu":
-        return stem_plain(x, w_packed, bias, activation=activation)
+
+
+@torch.library.register_fake(OP)
+def _fake(x, w_packed, bias, activation):
+    _check(x, w_packed, bias, activation)
+    return x.new_empty((*x.shape[:3], w_packed.shape[1]), dtype=torch.bfloat16)
+
+
+@torch.library.impl(OP, "CPU")
+def _cpu(x, w_packed, bias, activation):
+    _check(x, w_packed, bias, activation)
+    return stem_plain(x, w_packed, bias, activation=activation)
+
+
+@torch.library.impl(OP, "CUDA")
+def _cuda(x, w_packed, bias, activation):
+    _check(x, w_packed, bias, activation)
     # the kernel is built for C_in 3 (the main path) and 14; any other C_in
     # is zero-padded to 14
     if x.shape[-1] != 3:
@@ -66,6 +79,23 @@ def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
     _build.check(code, "cyv4_stem_conv3x3")
     conv3x3_stem.launches += 1
     return out
+
+
+_op = torch.ops.cyv4.stem_conv3x3.default
+
+
+def conv3x3_stem(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
+                 *, activation: str = "mish") -> torch.Tensor:
+    """y = act(conv3x3_pad1_s1(x, w) + bias) for tiny C_in: the op
+    ``cyv4::stem_conv3x3``.
+
+    Args:
+      x: (B, H, W, C_in) float32 raster, contiguous.
+      w_packed: (9*C_in, C_out) bfloat16 from `conv3x3.pack_weight`.
+      bias: (C_out,) float32.
+    Returns (B, H, W, C_out) bfloat16.
+    """
+    return _op(x, w_packed, bias, activation)
 
 
 conv3x3_stem.launches = 0  # kernel launches, read by chip_smoke.py

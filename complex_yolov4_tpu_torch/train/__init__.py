@@ -6,6 +6,7 @@ from .checkpoint import (
     restore_checkpoint,
     restore_params_and_bn,
     save_checkpoint_async,
+    save_params_and_bn,
     wait_for_async_save,
 )
 from .optimizer import create_optimizer, set_learning_rate, weight_decay_groups
@@ -25,6 +26,7 @@ __all__ = [
     "restore_checkpoint",
     "restore_params_and_bn",
     "save_checkpoint_async",
+    "save_params_and_bn",
     "set_learning_rate",
     "wait_for_async_save",
     "weight_decay_groups",

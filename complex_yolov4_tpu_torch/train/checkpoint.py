@@ -10,7 +10,9 @@ thread brings the copy to the host and writes it; `wait_for_async_save`
 joins that thread and re-raises its error. A write goes to a temporary
 file renamed into place, so an interrupted save never leaves half a file.
 `cli.common.load_weights` reads the parameters of such a file for
-`--pretrained_path`.
+`--pretrained_path`; `save_params_and_bn` writes a file of the parameters
+and BN statistics alone (`cli.export --format ckpt`, the counterpart of the
+JAX package's orbax export), which it reads the same way.
 
 Data parallel: the state is equal on every rank, so only the lead saves
 (`cli.train`); the other ranks wait for it at a barrier before they leave
@@ -61,17 +63,28 @@ def _snapshot(state: TrainState) -> Dict[str, Any]:
             "global_step": int(state.global_step)}
 
 
+def _save_atomic(payload: Dict[str, Any], path: str) -> None:
+    """`torch.save` to a temporary file renamed into place."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
 def _write(spec, checkpoints_dir: str, snap: Dict[str, Any], epoch: int) -> str:
     os.makedirs(checkpoints_dir, exist_ok=True)
     path = checkpoint_path(checkpoints_dir, epoch)
     params, bn_state = weights.from_train_state(spec, snap["model"])
-    payload = {"params": params, "bn_state": bn_state,
-               "optimizer": _map_tensors(torch.Tensor.cpu, snap["optimizer"]),
-               "global_step": snap["global_step"], "epoch": int(epoch)}
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    _save_atomic({"params": params, "bn_state": bn_state,
+                  "optimizer": _map_tensors(torch.Tensor.cpu, snap["optimizer"]),
+                  "global_step": snap["global_step"], "epoch": int(epoch)}, path)
     return path
+
+
+def save_params_and_bn(path: str, params, bn_state) -> None:
+    """Write ``{"params", "bn_state"}`` numpy trees (JAX layout) as a `.ckpt`
+    file that `restore_params_and_bn` reads."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    _save_atomic({"params": params, "bn_state": bn_state}, os.path.abspath(path))
 
 
 def save_checkpoint_async(checkpoints_dir: str, state: TrainState, epoch: int) -> None:

@@ -5,8 +5,8 @@ of the serving and evaluation paths (layer IR, model zoo, darknet cfg, KITTI
 constants and parsing, frame transforms and augmentations, targets,
 synthetic scenes and trees, host rasters, the train, test and eval CLI
 configs, the dataset with its mosaic and the loader, the LR schedules, the
-logger and meters, the visualization and the HTML viewer, and the native
-rasterizer's C++ source) so that it never imports JAX; each copy is held
+logger and meters, the visualization and the HTML viewer, the train/val
+split tool, and the native rasterizer's C++ source) so that it never imports JAX; each copy is held
 here to the JAX package's original: source copies by their syntax trees
 (docstrings aside, and the port's `import cv2` inside the functions that
 draw, where the original imports it at the top), the C++ source byte for
@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 from complex_yolov4_tpu.config import kitti as jcnf
+from complex_yolov4_tpu.cli import train_val_split as jtvs
 from complex_yolov4_tpu.config import runtime as jrt
 from complex_yolov4_tpu.data import bev as jbev
 from complex_yolov4_tpu.data import dataset as jds
@@ -45,6 +46,7 @@ from complex_yolov4_tpu.utils import meters as jmeters
 from complex_yolov4_tpu.utils import viewer_html as jviewer
 from complex_yolov4_tpu.utils import visualization as jviz
 from complex_yolov4_tpu_torch.config import kitti as tcnf
+from complex_yolov4_tpu_torch.cli import train_val_split as ttvs
 from complex_yolov4_tpu_torch.config import runtime as trt
 from complex_yolov4_tpu_torch.data import bev as tbev
 from complex_yolov4_tpu_torch.data import dataset as tds
@@ -102,6 +104,7 @@ def _top_level(module):
 
 # (JAX module, port module, names copied; None: the whole module)
 SOURCE_COPIES = {
+    "cli/train_val_split": (jtvs, ttvs, None),
     "config/kitti": (jcnf, tcnf, None),
     "config/runtime": (jrt, trt, ("_add_fields", "_build", "parse_eval_config",
                                   "parse_train_config", "parse_test_config")),
