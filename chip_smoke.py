@@ -8,19 +8,21 @@ fallback):
 
 1. device — the card's name, count, and `nvidia-smi` name and power limit;
 2. build — nvcc builds the kernels from complex_yolov4_tpu_torch/csrc/
-   (sm_90a, one nvcc per source, in parallel) and its -Xptxas -v register /
-   shared-memory lines are printed;
+   (sm_90a, one nvcc per source or source part, in parallel) and each
+   unit's seconds and its -Xptxas -v register / shared-memory lines are
+   printed;
 3. kernel vs plain, each on the same inputs as its plain PyTorch version,
    timed with CUDA events (plain, kernel, kernel, plain):
    - the stem kernel at (8, 608, 608, 3 -> 32) and the 3x3 kernel at the
      five complex_yolov4 main-path shapes (batch 8): at most 1 bf16 ulp
      apart (values below 2^-10 of the tensor's largest, where the f32 sum
      cancels, are held to the ulp of that floor);
-   - the 3x3 kernel's f32 instance (f32 x rounded to bf16 as it loads, f32
-     out: the contract of `pallas_conv.py` on an f32 x) at the same five
+   - the 3x3 kernel's f32 contract (f32 x rounded to bf16 for the
+     products, f32 out: `pallas_conv.py` on an f32 x) at the same five
      shapes: within 1e-4 of max |plain| (both round to bf16 the same way;
-     only the summation order differs); its library_ms is one f32 cuDNN
-     `F.conv2d` with TF32 off, as the port's f32 path runs;
+     only the summation order differs), each layer's kernel_ms printed
+     against its own bound; its library_ms is one f32 cuDNN `F.conv2d`
+     with TF32 off, as the port's f32 path runs;
    - the fused-stage kernel at (8, 304, 304, 64) segment 2-10 and (8, 152,
      152, 128) segment 12-23, the segments of complex_yolov4_tiny and
      complex_yolov3, and one 76-px batch-2 case (ragged tiles): max |diff|
@@ -34,9 +36,14 @@ fallback):
      1 ulp, requantized int8 within 1, f32 outputs (f32 compute) within
      1e-5 of max |plain| (the fast exp and divide); beside each eager
      kernel_ms, its device time (`device_ms`: CUDA-graph replay, no host
-     launch cost), and the times of the modes f32 compute runs: an int8
-     input (f32 compute quantizes every conv's input before the call),
-     int8 out on the chained convs and f32 out on the rest;
+     launch cost). Then the int8 conv as f32 compute runs it: an f32 input
+     on the non-chained convs (quantized in the kernel: its int32 sums
+     equal, its f32 output within 1e-5) and int8 on the chained ones, int8
+     out on the chained convs and f32 out on the rest, beside the route
+     before the kernel took an f32 input (the plain `quantize_input` pass,
+     then the kernel from its int8 x) on the same inputs, both eager and
+     device, with the f32 route's own bound (f32 in and out bytes) and its
+     own time on the 1x1 layers beside `torch._int_mm`;
    every timed shape also prints two yardsticks beside kernel_ms:
    - bound_ms, the least time the card could take for the same work: the
      larger of its bytes (each input read once, each output written once)
@@ -102,7 +109,9 @@ fallback):
    the all-plain f32 path, and f32 eval frames/s of a warm pass over 3 batches
    of 8, the first left out), and again, on its first 8 frames, with
    `--quantize int8` in f32 compute (calibrated in f32; the int8 convs
-   write f32, or int8 where chained, 68 int8 launches per batch). Then, on the trained state: 12
+   write f32, or int8 where chained, 68 int8 launches per batch; the
+   kernel quantizes each f32 input, so the plain `quantize_input` pass
+   must never run). Then, on the trained state: 12
    steps on one fixed batch (the loss finite and lower after them than
    before), and train images/s over 3 windows of 8 synced steps (each
    window printed), the device's busy share of 3 profiled steps
@@ -502,7 +511,7 @@ def phase_build():
     _build.load()
     print(f"[build] {_build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "ptxas info" in line or "spill" in line:
+        if line.startswith("== ") or "ptxas info" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
 
@@ -581,7 +590,8 @@ def phase_kernels(dev):
         bnd, by = add_bound(records[key], moved, ops, "bf16")
         print(f"[kernels] {name} x{tuple(x.shape)} -> {c_out} s{stride}: "
               f"{err_text} kernel_ms={k_ms:.4f} "
-              f"bound_ms={bnd:.4f} ({by}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP) "
+              f"bound_ms={bnd:.4f} ({by}: {moved / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP; "
+              f"the kernel at {bnd / k_ms:.1%} of it, {moved / k_ms / 1e9:.3f} TB/s) "
               f"library_ms={lib_ms:.4f} plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(name)
@@ -595,6 +605,10 @@ def phase_kernels(dev):
           "it leaves out the activation, which favours the library. A yardstick only: the "
           "port never calls it. The f32 instance's bound counts its products at the bf16 "
           "tensor-core peak (it rounds x and w to bf16) and its f32 input and output bytes.")
+    for key, r in records.items():
+        print(f"[kernels] {key} main-path layers: kernel_ms={r['ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_ms'] / r['ms']:.1%} of the bound) "
+              f"library_ms={r['library_ms']:.4f} plain_ms={r['plain_ms']:.4f}")
     if failed:
         raise AssertionError(f"kernel vs plain disagree beyond their bound: {failed}")
     return records
@@ -739,9 +753,13 @@ def phase_int8(dev):
     68 layers. library_ms covers the 1x1 layers only (`library_int_mm_ms`):
     no PyTorch call computes an int8 3x3 conv on CUDA. Also the f32 output
     mode (f32 compute), checked on the same inputs; its own record,
-    returned second, times the int8 conv as f32 compute runs it: every
-    input int8 (the network quantizes an f32 activation before the call),
-    the chained convs writing int8 for their consumer, the others f32."""
+    returned second, times the int8 conv as f32 compute runs it: an f32
+    input on the non-chained convs (which the kernel quantizes; its int32
+    sums and f32 output checked here too), int8 from the chained producers,
+    the chained convs writing int8 for their consumer, the others f32;
+    beside the parent's route on the same inputs (`quantize_input` as eager
+    ops, then the kernel from its int8 x) and over the 1x1 layers beside
+    `torch._int_mm`."""
     from complex_yolov4_tpu_torch.ops import int8_conv as i8
 
     shapes, chained = int8_shapes(), int8_chained_out()
@@ -752,7 +770,9 @@ def phase_int8(dev):
     rec.update(library_ms=None, library_layers=0, ms_on_library_layers=0.0, device_ms=0.0,
                library_device_ms=0.0, device_ms_on_library_layers=0.0)
     rec_f32 = new_record()
-    rec_f32.update(library_ms=None, device_ms=0.0)
+    rec_f32.update(library_ms=None, device_ms=0.0, library_layers=0, ms_on_library_layers=0.0,
+                   device_ms_on_library_layers=0.0, route_ms=0.0, parent_ms=0.0,
+                   parent_device_ms=0.0)
     failed = []
     s_x = np.float32(3.0 / 127.0)
     inv_s_x = float(np.float32(1.0) / s_x)
@@ -791,23 +811,54 @@ def phase_int8(dev):
                                 lambda: i8.int8_conv_plain(x, w, scale, b, **kw), 5)
         dev_ms = device_ms(lambda: i8.int8_conv(x, w, scale, b, **kw))
         rec["device_ms"] += dev_ms * count
-        # f32 compute: int8 x; out="int8" on the chained convs, "f32" on the rest
+        # f32 compute: an f32 x where path 2 has a bf16 one (the non-chained
+        # convs), which the kernel quantizes; out="int8" on the chained
+        # convs, "f32" on the rest
+        xf = x8 if src == "int8" else torch.randn(shape, generator=gen, device=dev)
+        if src != "int8":
+            p32f = i8.int8_conv_plain(xf, w, scale, b, out="int32", **kw)
+            g32f = i8.int8_conv(xf, w, scale, b, out="int32", **kw)
+            gff = i8.int8_conv(xf, w, scale, b, out="f32", **kw)
+            torch.cuda.synchronize()
+            pff = i8.epilogue(p32f, scale, b, s_x=kw["s_x"], activation="mish", out="f32")
+            eq32 = eq32 and torch.equal(g32f, p32f)
+            f32_rel = max(f32_rel, float((gff - pff).abs().max() / pff.abs().max()))
+            rec_f32["max_abs_err"] = max(rec_f32["max_abs_err"], float((gff - pff).abs().max()))
+            del p32f, g32f, gff, pff
         f_text = []
         for n, out_kw in ((count - chained[key], {"out": "f32"}),
                           (chained[key], {"out": "int8", "inv_s_next": inv_next})):
             if n == 0:
                 continue
-            f_ms, fp_ms = timed_pair(lambda: i8.int8_conv(x8, w, scale, b, **out_kw, **kw),
-                                     lambda: i8.int8_conv_plain(x8, w, scale, b, **out_kw, **kw),
+            route = functools.partial(i8.int8_conv, xf, w, scale, b, **out_kw, **kw)
+            f_ms, fp_ms = timed_pair(route,
+                                     lambda: i8.int8_conv_plain(xf, w, scale, b, **out_kw, **kw),
                                      5)
-            f_dev = device_ms(lambda: i8.int8_conv(x8, w, scale, b, **out_kw, **kw))
-            moved_f, ops_f = conv_work(BATCH, hw, hw, c_in, c_out, k, stride, 1,
+            f_dev = device_ms(route)
+            moved_f, ops_f = conv_work(BATCH, hw, hw, c_in, c_out, k, stride, xf.element_size(),
                                        4 if out_kw["out"] == "f32" else 1, 1)
             add_bound(rec_f32, moved_f + 4 * c_out, ops_f, "int8", n)
             rec_f32["ms"] += f_ms * n
             rec_f32["plain_ms"] += fp_ms * n
             rec_f32["device_ms"] += f_dev * n
-            f_text.append(f"{out_kw['out']} out x{n} {f_ms:.4f}, device {f_dev:.4f}")
+            text = f"{xf.dtype} in, {out_kw['out']} out x{n} {f_ms:.4f}, device {f_dev:.4f}"
+            if src == "int8":  # the same call on either route
+                r_ms, o_ms, o_dev = f_ms, f_ms, f_dev
+            else:  # the parent's route: the plain quantize pass, then the kernel from int8
+                def parent():
+                    return i8.int8_conv(i8.quantize_input(xf, inv_s_x), w, scale, b, **out_kw,
+                                        **kw)
+                r_ms, o_ms = timed_pair(route, parent, 5)
+                o_dev = device_ms(parent)
+                text += f" (quantize_input + kernel {o_ms:.4f}, device {o_dev:.4f})"
+            rec_f32["route_ms"] += r_ms * n
+            rec_f32["parent_ms"] += o_ms * n
+            rec_f32["parent_device_ms"] += o_dev * n
+            if k == 1 and stride == 1:
+                rec_f32["library_layers"] += n
+                rec_f32["ms_on_library_layers"] += f_ms * n
+                rec_f32["device_ms_on_library_layers"] += f_dev * n
+            f_text.append(text)
         ok = (eq32 and ulps <= 1.0 and d8 <= 1 and bool(torch.isfinite(gbf.float()).all())
               and gf32.dtype == torch.float32 and f32_rel <= 1e-5)
         # bf16-output mode, as timed: int8 or bf16 x, int8 w, f32 scale, bf16 out
@@ -827,7 +878,7 @@ def phase_int8(dev):
         print(f"[kernels] int8_conv k{k} s{stride} {c_in}->{c_out} @{hw} {src} in x{count}: "
               f"int32_equal={eq32} bf16 max_abs_err={abs_err:.6g} max_err_ulps={ulps:.3f} "
               f"int8 max_diff={d8} f32 rel_err={f32_rel:.3g} (tol 1e-5) "
-              f"kernel_ms={k_ms:.4f} (device {dev_ms:.4f}; f32 compute from int8 x: "
+              f"kernel_ms={k_ms:.4f} (device {dev_ms:.4f}; f32 compute: "
               f"{'; '.join(f_text)}) library_ms={lib} "
               f"bound_ms={bnd:.4f} ({by}) TOP/s={ops / dev_ms / 1e9:.1f} plain_ms={p_ms:.4f} "
               f"{'ok' if ok else 'FAIL'}")
@@ -836,7 +887,7 @@ def phase_int8(dev):
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
         rec["ms"] += k_ms * count
         rec["plain_ms"] += p_ms * count
-        del x, x8, w, g32, gbf, gi8, gf32, p32, pbf, pi8, pf32
+        del x, x8, xf, w, g32, gbf, gi8, gf32, p32, pbf, pi8, pf32
     print(f"[kernels] int8_conv library_ms: one torch._int_mm (cuBLAS int8 -> int32) per "
           f"1x1 conv, summed over those {rec['library_layers']} of the 68 layers: "
           f"{rec['library_ms']:.4f} ms against the kernel's {rec['ms_on_library_layers']:.4f} "
@@ -848,13 +899,24 @@ def phase_int8(dev):
           f"calls it.")
     print(f"[kernels] int8_conv 68 layers: {rec['ms']:.4f} ms per request (target 2.0); "
           f"device time {rec['device_ms']:.4f} ms")
-    # the library call computes the same int32 sums whatever the output mode
+    # the library call computes the same int32 sums whatever the input and
+    # output dtypes
     rec_f32["library_ms"] = rec["library_ms"]
-    print(f"[kernels] int8_conv in f32 compute, 68 layers from int8 inputs "
-          f"({sum(chained.values())} chained convs writing int8, the others f32): "
-          f"{rec_f32['ms']:.4f} ms per request, device time {rec_f32['device_ms']:.4f} ms, "
-          f"bound {rec_f32['bound_ms']:.4f} ms (f32 outputs written by the threads, no TMA "
-          f"store)")
+    assert rec_f32["library_layers"] == rec["library_layers"]
+    n_f32_in = sum(n for key, n in shapes.items() if key[-1] != "int8")
+    print(f"[kernels] int8_conv in f32 compute, 68 layers ({n_f32_in} "
+          f"from f32 inputs quantized in the kernel, the others int8 from "
+          f"their chained producer; {sum(chained.values())} chained convs writing int8, the "
+          f"others f32): {rec_f32['ms']:.4f} ms per request, device time "
+          f"{rec_f32['device_ms']:.4f} ms, bound {rec_f32['bound_ms']:.4f} ms; the parent's "
+          f"route (quantize_input as eager ops, then the kernel from int8) on the same inputs, "
+          f"timed in turns with this one: {rec_f32['parent_ms']:.4f} against "
+          f"{rec_f32['route_ms']:.4f} ms eager, device {rec_f32['parent_device_ms']:.4f} "
+          f"against {rec_f32['device_ms']:.4f} ms; on its {rec_f32['library_layers']} "
+          f"1x1 layers {rec_f32['ms_on_library_layers']:.4f} ms eager, device "
+          f"{rec_f32['device_ms_on_library_layers']:.4f}, against torch._int_mm's "
+          f"{rec['library_ms']:.4f} (device {rec['library_device_ms']:.4f}); the bf16 row's "
+          f"device time {rec['device_ms']:.4f} ms")
     if failed:
         raise AssertionError(f"int8 kernel vs plain disagree: {failed}")
     return rec, rec_f32
@@ -1498,13 +1560,22 @@ def phase_train(dev, tmp, root):
     lap("f32 eval of the checkpoint")
 
     # the checkpoint served int8 in f32 compute (calibrated in f32, the
-    # int8 convs writing f32)
+    # int8 convs writing f32); the kernel quantizes each f32 input, so the
+    # plain `quantize_input` pass must not run on the card
+    from complex_yolov4_tpu_torch.ops import int8_conv as i8
+
     for fn in fns.values():
         fn.launches = 0
     cold_i8 = {}
-    out_i8, model_i8 = evaluate.main(eval_argv + ["--quantize", "int8", "--calib_batches",
-                                                  "1", "--num_samples", str(BATCH)],
-                                     timings=cold_i8)
+    quantize_calls = []
+    real_quantize = i8.quantize_input
+    i8.quantize_input = lambda *a, **k: quantize_calls.append(1) or real_quantize(*a, **k)
+    try:
+        out_i8, model_i8 = evaluate.main(eval_argv + ["--quantize", "int8", "--calib_batches",
+                                                      "1", "--num_samples", str(BATCH)],
+                                         timings=cold_i8)
+    finally:
+        i8.quantize_input = real_quantize
     got = {k: fn.launches for k, fn in fns.items()}
     per_batch, want = expected_launches(model_i8, len(cold_i8["infer"]), 1)
     print(f"[train] checkpoint in cli.evaluate --quantize int8 (f32 compute, the first "
@@ -1513,10 +1584,11 @@ def phase_train(dev, tmp, root):
           f"model.routes(608) {per_batch} plus the f32 calibration batch; device_ms/batch "
           + " ".join(f"{x * 1e3:.2f}" for x in cold_i8["infer"])
           + f"; eval frames/s (cold, every batch)="
-          f"{BATCH / cold_i8['total'][0]:.2f}")
-    if (got != want or per_batch["int8_conv"] != 68
+          f"{BATCH / cold_i8['total'][0]:.2f}; quantize_input calls {len(quantize_calls)}")
+    if (got != want or per_batch["int8_conv"] != 68 or quantize_calls
             or {kw.get("out") for kw in model_i8._int8_kw.values()} != {"f32", "int8"}):
-        raise AssertionError(f"int8 f32 eval of the checkpoint: {got} != {want}")
+        raise AssertionError(f"int8 f32 eval of the checkpoint: {got} != {want} or "
+                             f"{len(quantize_calls)} quantize_input calls")
     launches["eval int8 f32 checkpoint"] = got
     del model_i8
     lap("int8 f32 eval of the checkpoint")

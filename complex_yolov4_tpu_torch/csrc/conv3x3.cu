@@ -11,7 +11,7 @@
 // kernels compute y = act(conv3x3_pad1(x, w) + b) with symmetric 1-px zero
 // padding (stride 2 reads input rows 2i-1..2i+1, as F.conv2d(padding=1)),
 // bf16 products, f32 accumulation, f32 bias and activation, bf16 output
-// (f32 in and out for cyv4_conv3x3_f32).
+// (f32 in and out for cyv4_conv3x3_f32, whose design is its own: below).
 //
 // Both kernels share one design: a persistent grid (SMs x resident blocks)
 // in which each warp (stem) or warpgroup (3x3) walks its own output tiles
@@ -81,17 +81,41 @@
 //   instead. Six instances are built: the four TMA ones of the main path
 //   (C_in 32 and 64 at stride 1 and 2) and the two cp.async ones of C_in
 //   128, which take the stride at run time.
-//   The f32 contract (cyv4_conv3x3_f32, pallas_conv.py with an f32 x): x
-//   is f32, rounded to bf16 on its way into the window (pallas_conv.py:140),
-//   and the output is f32. An f32 window would be twice the bytes, which
-//   neither the TMA boxes (their swizzle spans a bf16 pixel) nor two rings
-//   beside the weights leave room for, so the group's threads read the f32
-//   pixels with 16-byte loads, round them in registers and store the bf16
-//   chunks where the TMA or cp.async copy would have put them: the window,
-//   the ring, the weights and the products are those of the bf16 kernel,
-//   and only the loads (synchronous, hidden by the other warpgroup and
-//   block) and the 8-byte f32 stores differ. Three instances, the stride
-//   at run time: wgmma for C_in 32 and 64, mma.sync for C_in 128.
+//
+// cyv4_conv3x3_f32 is the f32 contract of the same Pallas kernel
+// (pallas_conv.py with an f32 x): x is f32, rounded to bf16 for the
+// products (pallas_conv.py:140), and the output is f32 (:161).
+//   What bounds it: the five layers at batch 8 move 1,325 MB (f32 in and
+//   out; 567 MB of it is output), 0.396 ms at 3.35 TB/s, against the same
+//   109 GFLOP at the bf16 peak (x and w are rounded to bf16): bounded by
+//   bytes, by twice as much as the bf16 kernel.
+//   What the design does: a block is two consumer warpgroups and one
+//   producer warp. The producer's one thread keeps a ring of f32 window
+//   units in flight by TMA: a unit is one 32-channel slice of a tile's
+//   (3*s+3) x (15*s+3) input window, one box of x viewed as (B, H, W,
+//   C_in) floats, 128 bytes a pixel in the 128-byte swizzle, its
+//   out-of-bounds zeros the padding; no thread waits for a load it did not
+//   need yet, and no index arithmetic is left to the consumers beyond a
+//   tap's pixel offset. The consumers take the units in turn, tile by tile
+//   (C_in / 32 units a tile), and build each wgmma A fragment straight
+//   from the f32 slot: a 16-byte ld.shared per fragment row and k16 chunk,
+//   rounded to bf16 in registers (the plain version's cast), so the f32
+//   window needs no bf16 copy. Each quad's lane q takes channels 4q..4q+3
+//   of a k16 chunk (the weight rows are stored in that order), and the two
+//   fragment rows of a quarter-warp are output columns 4 window pixels
+//   apart, so the eight 16-byte loads of a quarter-warp hit the eight
+//   chunks of a 128-byte row. The weight slice stays resident as in the
+//   bf16 kernel. The epilogue writes the activated f32 tile into the
+//   warpgroup's own 16 KB output tile in shared memory (128-byte swizzle)
+//   and one thread sends it out as two TMA stores (32 channels each, which
+//   clip the ragged edges), then the warpgroup goes on to its next tile's
+//   products while the stores drain. The stride is a template parameter
+//   (two instances); C_in (32, 64 or 128) sets the units a tile. Shared
+//   memory per block: the weights (36.9, 73.7 or 147.5 KB), two 16 KB
+//   output tiles and the ring, as many units as fit up to 8: a unit is
+//   14 KB at stride 1 and 38 KB at stride 2, so C_in 32 holds 8 and 4
+//   (L6; L1), C_in 64 8 and 3 (L16, L19; L11), C_in 128 (off the main
+//   path) 3 and 1.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -99,9 +123,9 @@
 #include <stdint.h>
 
 // The library build compiles this file once per part, in parallel, so that
-// nvcc's work on the eleven kernel instances splits three ways
-// (ops/_build.py PARTS): CYV4_PART 1 the stem (and cyv4_error_string), 2
-// the bf16 3x3 kernel, 3 its f32 instances. Without CYV4_PART every entry
+// nvcc's work on the ten kernel instances splits three ways (ops/_build.py
+// PARTS): CYV4_PART 1 the stem (and cyv4_error_string), 2 the bf16 3x3
+// kernel, 3 its f32 contract. Without CYV4_PART every entry
 // point is compiled.
 #ifndef CYV4_PART
 #define CYV4_PART 0
@@ -112,8 +136,9 @@ namespace {
 
 enum Act { ACT_LINEAR = 0, ACT_MISH = 1, ACT_LEAKY = 2, ACT_RELU = 3 };
 
-__device__ __forceinline__ float apply_act(float x, int act) {
-  if (act == ACT_MISH) {
+template <int ACT>
+__device__ __forceinline__ float act_of(float x) {
+  if (ACT == ACT_MISH) {
     // Single-exp mish of the JAX executor (models/network.py _act):
     // s = exp(min(x, 20)); q = s*s + 2s; x * q / (q + 2). The fast exp and
     // divide are a few f32 ulps off, far inside the bf16 rounding that
@@ -122,8 +147,15 @@ __device__ __forceinline__ float apply_act(float x, int act) {
     float q = s * s + 2.0f * s;
     return x > 20.0f ? x : __fdividef(x * q, q + 2.0f);
   }
-  if (act == ACT_LEAKY) return x >= 0.0f ? x : 0.1f * x;
-  if (act == ACT_RELU) return fmaxf(x, 0.0f);
+  if (ACT == ACT_LEAKY) return x >= 0.0f ? x : 0.1f * x;
+  if (ACT == ACT_RELU) return fmaxf(x, 0.0f);
+  return x;
+}
+
+__device__ __forceinline__ float apply_act(float x, int act) {
+  if (act == ACT_MISH) return act_of<ACT_MISH>(x);
+  if (act == ACT_LEAKY) return act_of<ACT_LEAKY>(x);
+  if (act == ACT_RELU) return act_of<ACT_RELU>(x);
   return x;
 }
 
@@ -309,22 +341,45 @@ __device__ __forceinline__ void store_slice(const float (&acc)[4][4], int half, 
     if (ok && 8 * nj < c_left) dst[4 * nj] = v[nj];
 }
 
-// The same slice stored as f32 (the f32 instances): lane q writes channels
-// 8nj + 2q, 2q + 1 as one 8-byte word.
-__device__ __forceinline__ void store_slice(const float (&acc)[4][4], int half, int act,
-                                            float* px, int q, int c_left, bool ok) {
-  float2* dst = reinterpret_cast<float2*>(px) + q;
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-    if (ok && 8 * nj < c_left)
-      dst[4 * nj] = make_float2(apply_act(acc[nj][2 * half], act),
-                                apply_act(acc[nj][2 * half + 1], act));
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// TMA store of a box from shared memory, tracked by the thread's bulk
+// groups; the tensor map clips what lies past the tensor's edge.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 int sm_count() {
@@ -625,8 +680,6 @@ constexpr int MBAR_BYTES = 64;     // one 8-byte mbarrier per window slot, at mo
 enum Load {
   LOAD_CP16 = 1,  // 16-byte cp.async copies by the group's threads
   LOAD_TMA = 2,   // C_in 32 or 64: one TMA box per stride phase
-  LOAD_F32 = 3,   // an f32 x: the group's threads read it, round it to bf16
-                  // and store it in the bf16 window's layout
 };
 
 // A block's warps form groups that each walk their own tiles with their own
@@ -693,43 +746,6 @@ __device__ __forceinline__ void conv_load_window(const __nv_bfloat16* __restrict
   }
 }
 
-// The same window from an f32 x (the f32 instances): each thread reads the
-// 8 floats of a 16-byte bf16 chunk with two 16-byte loads, rounds them to
-// bf16 (round to nearest even, as the plain version's cast) and stores the
-// chunk where conv_load_window would put it, so the window in shared memory
-// is bf16 before any A fragment is read from it and the products, the ring
-// and shared memory are those of the bf16 instances. The stride is g.S.
-template <int NT>
-__device__ __forceinline__ void conv_load_window_f32(const float* __restrict__ x,
-                                                     const ConvGeom& g, int t, uint32_t dst_s,
-                                                     int gtid) {
-  const int s = g.S;
-  const int tx = t % g.tiles_x, rest = t / g.tiles_x;
-  const int ty = rest % g.tiles_y, n = rest / g.tiles_y;
-  const int iy0 = ty * CONV_TH * s - 1, ix0 = tx * CONV_TW * s - 1;
-  const float* xn = x + (size_t)n * g.H * g.W * g.C_in;
-  const int total = (g.win_h * g.win_w) << g.nch_log2;
-  for (int e = gtid; e < total; e += NT) {
-    const int pix = e >> g.nch_log2, ch = e & (g.nch - 1);
-    const int r = __float2int_rz(((float)pix + 0.5f) * g.inv_win_w);
-    const int c = pix - r * g.win_w;
-    const int gy = iy0 + r, gx = ix0 + c;
-    const bool ok = (unsigned)gy < (unsigned)g.H && (unsigned)gx < (unsigned)g.W;
-    const int p = r * g.cols + (c >> (s - 1));
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (ok) {
-      const float4* src =
-          reinterpret_cast<const float4*>(xn + ((size_t)gy * g.W + gx) * g.C_in + ch * 8);
-      const float4 a = __ldg(src), b = __ldg(src + 1);
-      v = make_uint4(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w), pack_bf16x2(b.x, b.y),
-                     pack_bf16x2(b.z, b.w));
-    }
-    st_shared_v4(dst_s + (c & (s - 1)) * g.blk_bytes +
-                     ((p * g.nch + (ch ^ ((p >> g.swz_shift) & g.swz_mask))) << 4),
-                 v);
-  }
-}
-
 // Ask for tile t's window by TMA (one thread): one box per stride phase,
 // the tensor map's out-of-bounds zeros being the 1-px padding and its
 // swizzle the one the ldmatrix addresses undo.
@@ -760,15 +776,13 @@ constexpr int conv_min_blocks(int S, int KC) { return KC == 8 || (KC == 4 && S =
 // pixels (A: each warp's row, ldmatrix from the window) by the 64-channel
 // weight slice (B: read from shared memory by the tensor cores). KC == 0:
 // mma.sync; each warp takes one row and 32 channels. S: the stride, or 0
-// to take it from g.S (cp.async and f32 windows only). T: the type of x
-// and out, bf16 or (LOAD_F32) float.
-template <int S, int LOAD, int KC, typename T>
+// to take it from g.S (cp.async windows only).
+template <int S, int LOAD, int KC>
 __global__ void __launch_bounds__(CONV_THREADS, conv_min_blocks(S, KC))
-conv3x3_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ out, ConvGeom g,
+conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, ConvGeom g,
                int act, const __grid_constant__ CUtensorMap x_map) {
   static_assert(S > 0 || LOAD != LOAD_TMA, "TMA boxes need the stride at compile time");
-  static_assert((LOAD == LOAD_F32) == (sizeof(T) == 4), "f32 x and out go with LOAD_F32");
   constexpr bool WG = KC > 0;
   constexpr int GROUPS = WG ? 2 : 1;
   constexpr int NT = CONV_THREADS / GROUPS;  // threads per group
@@ -834,12 +848,7 @@ conv3x3_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
       if (gtid == 0 && tile < g.n_spatial)
         conv_tma_window<S>(&x_map, g, tile, w_s + off, bars + 8 * slot);
     } else {
-      if (tile < g.n_spatial) {
-        if constexpr (LOAD == LOAD_F32)
-          conv_load_window_f32<NT>(x, g, tile, w_s + off, gtid);
-        else
-          conv_load_window<S, NT>(x, g, tile, w_s + off, gtid);
-      }
+      if (tile < g.n_spatial) conv_load_window<S, NT>(x, g, tile, w_s + off, gtid);
       cp_async_commit();
     }
   };
@@ -941,7 +950,7 @@ conv3x3_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int ox = tx * CONV_TW + gq + 8 * half;
-          T* px = out + (((size_t)n * g.Ho + oy) * g.Wo + ox) * g.C_out + c0;
+          __nv_bfloat16* px = out + (((size_t)n * g.Ho + oy) * g.Wo + ox) * g.C_out + c0;
           store_slice(acc[h], half, act, px, q, g.C_out - c0, ox < g.Wo);
         }
       }
@@ -1012,25 +1021,25 @@ cudaError_t conv_tensor_map(CUtensorMap* map, const __nv_bfloat16* x, const Conv
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int S, int LOAD, int KC, typename T = __nv_bfloat16>
-cudaError_t launch_conv(const T* x, const __nv_bfloat16* w, const float* bias, T* out,
-                        const ConvGeom& g, int act, cudaStream_t stream) {
+template <int S, int LOAD, int KC>
+cudaError_t launch_conv(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                        __nv_bfloat16* out, const ConvGeom& g, int act, cudaStream_t stream) {
   constexpr int groups = KC > 0 ? 2 : 1;
   const size_t smem = conv_smem_bytes(g, groups, g.stages);
   CUtensorMap map{};
   cudaError_t e = cudaSuccess;
   if constexpr (LOAD == LOAD_TMA) e = conv_tensor_map(&map, x, g);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(conv3x3_kernel<S, LOAD, KC, T>,
+  e = cudaFuncSetAttribute(conv3x3_kernel<S, LOAD, KC>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   unsigned grid = 0;
-  e = persistent_grid(conv3x3_kernel<S, LOAD, KC, T>, CONV_THREADS, smem,
+  e = persistent_grid(conv3x3_kernel<S, LOAD, KC>, CONV_THREADS, smem,
                       (long long)(g.n_spatial + groups - 1) / groups * g.n_ctiles, g.n_ctiles,
                       &grid);
   if (e != cudaSuccess) return e;
-  conv3x3_kernel<S, LOAD, KC, T><<<grid, CONV_THREADS, smem, stream>>>(x, w, bias, out, g, act,
-                                                                       map);
+  conv3x3_kernel<S, LOAD, KC><<<grid, CONV_THREADS, smem, stream>>>(x, w, bias, out, g, act,
+                                                                    map);
   return cudaGetLastError();
 }
 
@@ -1052,16 +1061,302 @@ cudaError_t launch_conv_for(const __nv_bfloat16* x, const __nv_bfloat16* w, cons
 }
 #endif
 
-// The f32 instances, with the stride taken at run time: wgmma for C_in 32
-// and 64 (the main path), mma.sync for C_in 128 (off it), so that three
-// instances cover every shape.
+// ------------------------------------------------------- conv3x3, f32 ----
+
+constexpr int F32_THREADS = 288;  // two consumer warpgroups and one producer warp
+constexpr int F32_SLICE = 32;     // input channels a ring unit holds: a 128-byte pixel row
+constexpr int F32_OUT_BOX = CONV_TH * CONV_TW * F32_SLICE * 4;  // 32 channels of a tile, f32
+constexpr int F32_OUT = 2 * F32_OUT_BOX;  // a warpgroup's 64-channel output tile (16 KB)
+constexpr int F32_MAX_SLOTS = 8;          // ring units at most
+
+// Geometry of one f32 launch, computed on the host. A ring unit is one
+// 32-channel slice of a tile's input window: win_h rows x win_w pixels x 128
+// bytes, as one TMA box writes it in the 128-byte swizzle.
+struct F32Geom {
+  int C_in, C_out, Ho, Wo;
+  int win_h, win_w;
+  int slot_bytes;  // a unit's bytes, padded to a 1024-byte multiple (the swizzle's period)
+  int ns;          // units per tile: C_in / 32
+  int slots;       // units the ring holds
+  int tiles_x, tiles_y, n_spatial, n_ctiles;
+};
+
+// Output column (0..7; + 8 for fragment rows 8..15) of fragment row g of a
+// warp's 16-pixel run. The two rows a quarter-warp reads (g = 2j, 2j + 1)
+// lie 4 window pixels apart, so their 16-byte chunks fall in opposite
+// halves of the 128-byte swizzle and the quarter-warp's eight 16-byte loads
+// hit eight distinct chunks of a 128-byte row (no bank conflict).
+template <int S>
+__device__ __forceinline__ int f32_col(int g) {
+  return S == 1 ? ((g & 1) << 2) | (g >> 1) : (g & 4) | ((g & 1) << 1) | ((g >> 1) & 1);
+}
+
+// The A fragments (the two k16 chunks of a 32-channel unit) of the warp's
+// output row at tap (ky, kx), read from the unit's f32 window and rounded
+// to bf16 (round to nearest even, the plain version's cast). Fragment row
+// g is output column `col` = f32_col(g) (and col + 8); lane q of a quad
+// holds channels 4q..4q+3 of each k16 chunk as the fragment's columns 2q,
+// 2q + 1 (registers 0, 1) and 2q + 8, 2q + 9 (registers 2, 3), the order
+// the kernel stores the weight rows in, so each pair of registers comes
+// from one 16-byte load.
+template <int S>
+__device__ __forceinline__ void f32_a_load(uint32_t (&a)[2][4], uint32_t win, int win_w, int row,
+                                           int col, int q, int ky, int kx) {
+  const int p0 = (row * S + ky) * win_w + S * col + kx;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = p0 + 8 * S * hr;
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      const float4 v = ld_shared_f4(win + p * 128 + (((4 * kc + q) ^ (p & 7)) << 4));
+      a[kc][hr] = pack_bf16x2(v.x, v.y);
+      a[kc][2 + hr] = pack_bf16x2(v.z, v.w);
+    }
+  }
+}
+
+// The activated accumulators into the warpgroup's output tile: two boxes of
+// 4 rows x 16 pixels x 32 channels (channel halves h), each pixel's 128
+// bytes in the 128-byte swizzle that the TMA store undoes. Lane q writes
+// channels 8j + 2q, 2q + 1 of each half as one 8-byte word.
+template <int ACT>
+__device__ __forceinline__ void f32_epilogue(const float (&acc)[2][4][4], uint32_t stg, int row,
+                                             int col, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int px = row * CONV_TW + col + 8 * hr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        st_shared_f2(stg + h * F32_OUT_BOX + px * 128 + (((2 * j + (q >> 1)) ^ (px & 7)) << 4) +
+                         (q & 1) * 8,
+                     act_of<ACT>(acc[h][j][2 * hr]), act_of<ACT>(acc[h][j][2 * hr + 1]));
+    }
+}
+
+// The f32 contract. Threads 0-255 are two consumer warpgroups, each walking
+// every other tile of the block (4 rows x 16 pixels x the block's 64
+// channels); thread 256 keeps the ring of window units full for both, in
+// the order the tiles are taken, one unit per slice of C_in, unit u in slot
+// u % slots. Each slot has an empty barrier, which one arrival from each
+// warp of the unit's warpgroup completes, and a full barrier per
+// warpgroup, which the unit's TMA bytes complete: a warpgroup waits only on
+// its own units' barriers, each phase in turn, so its parity can never
+// name a phase of the other warpgroup's units (a slot's units alternate
+// between the two in no fixed pattern).
+template <int S>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+conv3x3_f32_kernel(const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+                   F32Geom g, int act, const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap o_map) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_addr(smem_raw);
+  const uint32_t w_s = (raw_s + SMEM_ALIGN - 1) & ~(uint32_t)(SMEM_ALIGN - 1);
+  const uint32_t o_s = w_s + 9 * g.C_in * CONV_BN * 2;  // the warpgroups' output tiles
+  const uint32_t ring = o_s + 2 * F32_OUT;
+  // full barriers [warpgroup][slot], then empty barriers [slot]
+  const uint32_t full = ring + g.slots * g.slot_bytes, empty = full + 16 * F32_MAX_SLOTS;
+  const int tid = threadIdx.x;
+  const int n0 = (blockIdx.x % g.n_ctiles) * CONV_BN;
+  const int t0 = blockIdx.x / g.n_ctiles, step = gridDim.x / g.n_ctiles;
+  if (tid == 0) {
+    for (int s = 0; s < g.slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(full + 8 * (F32_MAX_SLOTS + s), 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp
+    if (tid == 256) {
+      uint32_t u = 0;  // units issued (ring position)
+      for (int t = t0; t < g.n_spatial; t += step) {
+        const int tx = t % g.tiles_x, rest = t / g.tiles_x;
+        const int ty = rest % g.tiles_y, n = rest / g.tiles_y;
+        // the block's i-th tile goes to warpgroup i & 1
+        const uint32_t bars = full + 8 * F32_MAX_SLOTS * (((t - t0) / step) & 1);
+        for (int sl = 0; sl < g.ns; ++sl, ++u) {
+          const uint32_t slot = u % g.slots;
+          mbar_wait(empty + 8 * slot, ((u / g.slots) & 1) ^ 1);
+          mbar_expect_tx(bars + 8 * slot, g.win_h * g.win_w * F32_SLICE * 4);
+          tma_load_4d(ring + slot * g.slot_bytes, &x_map, sl * F32_SLICE,
+                      tx * CONV_TW * S - 1, ty * CONV_TH * S - 1, n, bars + 8 * slot);
+        }
+      }
+    }
+    return;
+  }
+
+  const int grp = tid >> 7, wt = tid & 127, row = wt >> 5, lane = tid & 31;
+  const int q = lane & 3, col = f32_col<S>(lane >> 2);
+  // The block's (9*C_in, 64) weight slice as the bf16 kernel stores it, but
+  // with each k16 chunk's rows in the order the A fragments take their
+  // channels: row 16c + k holds channel 16c + 4((k & 7) >> 1) + 2(k >> 3)
+  // + (k & 1).
+  for (int e = tid; e < 9 * g.C_in * 8; e += 256) {
+    const int k = e >> 3, c = e & 7, kl = k & 15;
+    const int src = (k & ~15) | (((kl & 7) >> 1) << 2) | ((kl >> 3) << 1) | (kl & 1);
+    const int n = n0 + c * 8;
+    const bool ok = n < g.C_out;
+    cp_async16(w_s + k * 128 + ((c ^ (k & 7)) << 4), ok ? w + ((size_t)src * g.C_out + n) : w,
+               ok);
+  }
+  cp_async_commit();
+  float bv[2][4][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + h * 32 + nj * 8 + 2 * q + e;
+        bv[h][nj][e] = n < g.C_out ? bias[n] : 0.0f;
+      }
+  // every consumer's weights have landed and are visible to the tensor
+  // cores' reads (named barrier 3: the two warpgroups, not the producer)
+  cp_async_wait<0>();
+  fence_proxy_async();
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+
+  const uint32_t stg = o_s + grp * F32_OUT;
+  const uint32_t bars = full + 8 * F32_MAX_SLOTS * grp;  // this warpgroup's full barriers
+  uint32_t phases = 0;  // bit s: the parity of slot s's next completion for this warpgroup
+  // the warpgroup takes the block's tiles grp, grp + 2, ...: tile i's units
+  // are i * ns .. i * ns + ns - 1 of the producer's sequence
+  uint32_t u0 = grp * g.ns;
+  for (int t = t0 + grp * step; t < g.n_spatial; t += 2 * step, u0 += 2 * g.ns) {
+    float acc[2][4][4];  // starts at the bias: element e is channel 2q + (e & 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][nj][e] = bv[h][nj][e & 1];
+    for (int sl = 0; sl < g.ns; ++sl) {
+      const uint32_t slot = (u0 + sl) % g.slots;
+      mbar_wait(bars + 8 * slot, (phases >> slot) & 1);
+      phases ^= 1u << slot;
+      const uint32_t win = ring + slot * g.slot_bytes;
+      // one commit group per tap; the next tap's A loads into the other
+      // register set while this tap's products run
+      uint32_t a[2][2][4];
+      f32_a_load<S>(a[0], win, g.win_w, row, col, q, 0, 0);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        wgmma_fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc)
+          wgmma_m64n64k16(acc, a[tap & 1][kc],
+                          b_desc(w_s + (tap * g.C_in + sl * F32_SLICE + kc * 16) * 128));
+        wgmma_commit();
+        if (tap < 8) {
+          wgmma_wait<1>();
+          f32_a_load<S>(a[(tap + 1) & 1], win, g.win_w, row, col, q, (tap + 1) / 3,
+                        (tap + 1) % 3);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * slot);  // the warp is done reading the unit
+      wgmma_wait<0>();  // the next unit's first A loads into set 0
+      wgmma_fence_operands(acc);
+    }
+
+    const int tx = t % g.tiles_x, rest = t / g.tiles_x;
+    const int ty = rest % g.tiles_y, n = rest / g.tiles_y;
+    if (wt == 0) bulk_wait_read();  // the previous tile's stores have read stg
+    group_sync<128>(grp);
+    switch (act) {
+      case ACT_MISH: f32_epilogue<ACT_MISH>(acc, stg, row, col, q); break;
+      case ACT_LEAKY: f32_epilogue<ACT_LEAKY>(acc, stg, row, col, q); break;
+      case ACT_RELU: f32_epilogue<ACT_RELU>(acc, stg, row, col, q); break;
+      default: f32_epilogue<ACT_LINEAR>(acc, stg, row, col, q); break;
+    }
+    fence_proxy_async();
+    group_sync<128>(grp);
+    if (wt == 0) {
+      tma_store_4d(&o_map, stg, n0, tx * CONV_TW, ty * CONV_TH, n);
+      if (n0 + F32_SLICE < g.C_out)
+        tma_store_4d(&o_map, stg + F32_OUT_BOX, n0 + F32_SLICE, tx * CONV_TW, ty * CONV_TH, n);
+      bulk_commit();
+    }
+  }
+  if (wt == 0) bulk_wait();  // the output tiles leave before the block does
+}
+
+size_t f32_smem_bytes(const F32Geom& g, int slots) {
+  return SMEM_ALIGN + (size_t)9 * g.C_in * CONV_BN * 2 + 2 * F32_OUT +
+         (size_t)slots * g.slot_bytes + 24 * F32_MAX_SLOTS;
+}
+
+// Fill in the f32 launch geometry: one block per SM, the ring as many
+// units as fit beside the weights and output tiles, up to F32_MAX_SLOTS;
+// false if not one fits.
+bool f32_geometry(F32Geom& g, int B, int H, int W, int C_in, int C_out, int S) {
+  g.C_in = C_in, g.C_out = C_out, g.Ho = H / S, g.Wo = W / S;
+  g.win_h = (CONV_TH - 1) * S + 3;
+  g.win_w = (CONV_TW - 1) * S + 3;
+  g.slot_bytes = (g.win_h * g.win_w * F32_SLICE * 4 + SMEM_ALIGN - 1) / SMEM_ALIGN * SMEM_ALIGN;
+  g.ns = C_in / F32_SLICE;
+  g.tiles_x = (g.Wo + CONV_TW - 1) / CONV_TW;
+  g.tiles_y = (g.Ho + CONV_TH - 1) / CONV_TH;
+  g.n_spatial = B * g.tiles_y * g.tiles_x;
+  g.n_ctiles = (C_out + CONV_BN - 1) / CONV_BN;
+  const long long room =
+      (long long)(SM_SMEM - BLOCK_SMEM_RESERVED) - (long long)f32_smem_bytes(g, 0);
+  const long long fit = room / g.slot_bytes;
+  g.slots = fit < F32_MAX_SLOTS ? (int)fit : F32_MAX_SLOTS;
+  return g.slots >= 1;
+}
+
+// The f32 tensor maps: x (B, H, W, C_in) read in boxes of 32 channels x a
+// window's pixels x its rows, out-of-bounds elements read as zero; out (B,
+// Ho, Wo, C_out) written in boxes of 32 channels x 16 pixels x 4 rows; both
+// in the 128-byte swizzle (a box row is one pixel's 128 bytes).
+bool f32_tensor_maps(CUtensorMap* x_map, CUtensorMap* o_map, const float* x, float* out,
+                     const F32Geom& g, int B, int H, int W) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const cuuint64_t x_dims[4] = {(cuuint64_t)g.C_in, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t x_strides[3] = {(cuuint64_t)g.C_in * 4, (cuuint64_t)W * g.C_in * 4,
+                                   (cuuint64_t)H * W * g.C_in * 4};
+  const cuuint32_t x_box[4] = {F32_SLICE, (cuuint32_t)g.win_w, (cuuint32_t)g.win_h, 1};
+  const cuuint64_t o_dims[4] = {(cuuint64_t)g.C_out, (cuuint64_t)g.Wo, (cuuint64_t)g.Ho,
+                                (cuuint64_t)B};
+  const cuuint64_t o_strides[3] = {(cuuint64_t)g.C_out * 4, (cuuint64_t)g.Wo * g.C_out * 4,
+                                   (cuuint64_t)g.Ho * g.Wo * g.C_out * 4};
+  const cuuint32_t o_box[4] = {F32_SLICE, CONV_TW, CONV_TH, 1};
+  return encode(x_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x), x_dims,
+                x_strides, x_box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         encode(o_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, out, o_dims, o_strides, o_box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 #if CYV4_HAS_PART(3)
-cudaError_t launch_conv_f32(const float* x, const __nv_bfloat16* w, const float* bias,
-                            float* out, const ConvGeom& g, bool wgmma, int act,
+template <int S>
+cudaError_t launch_conv_f32(const float* x, const __nv_bfloat16* w, const float* bias, float* out,
+                            const F32Geom& g, int B, int H, int W, int act,
                             cudaStream_t stream) {
-  if (!wgmma || g.cp == 128) return launch_conv<0, LOAD_F32, 0>(x, w, bias, out, g, act, stream);
-  return g.cp == 32 ? launch_conv<0, LOAD_F32, 2>(x, w, bias, out, g, act, stream)
-                    : launch_conv<0, LOAD_F32, 4>(x, w, bias, out, g, act, stream);
+  CUtensorMap x_map{}, o_map{};
+  if (!f32_tensor_maps(&x_map, &o_map, x, out, g, B, H, W)) return cudaErrorInvalidValue;
+  const size_t smem = f32_smem_bytes(g, g.slots);
+  cudaError_t e = cudaFuncSetAttribute(conv3x3_f32_kernel<S>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  unsigned grid = 0;
+  e = persistent_grid(conv3x3_f32_kernel<S>, F32_THREADS, smem,
+                      (long long)(g.n_spatial + 1) / 2 * g.n_ctiles, g.n_ctiles, &grid);
+  if (e != cudaSuccess) return e;
+  conv3x3_f32_kernel<S><<<grid, F32_THREADS, smem, stream>>>(w, bias, g, act, x_map, o_map);
+  return cudaGetLastError();
 }
 #endif
 
@@ -1113,7 +1408,7 @@ int cyv4_conv3x3(const void* x, const void* w, const void* bias, void* out, int 
 #endif
 
 // The f32 contract of the same conv: x (B, H, W, C_in) f32 NHWC, rounded
-// to bf16 as it is loaded; w and bias as above; out (B, H/stride,
+// to bf16 for the products; w and bias as above; out (B, H/stride,
 // W/stride, C_out) f32 (the bias and activation in f32, not rounded).
 #if CYV4_HAS_PART(3)
 int cyv4_conv3x3_f32(const void* x, const void* w, const void* bias, void* out, int B,
@@ -1121,13 +1416,16 @@ int cyv4_conv3x3_f32(const void* x, const void* w, const void* bias, void* out, 
   if ((stride != 1 && stride != 2) || (C_in != 32 && C_in != 64 && C_in != 128) ||
       C_out % 8 != 0 || C_out < 8)
     return (int)cudaErrorInvalidValue;
-  ConvGeom g;
-  bool wg = false;
-  if (!conv_geometry(g, wg, B, H, W, C_in, C_out, stride)) return (int)cudaErrorInvalidValue;
+  F32Geom g;
+  if (!f32_geometry(g, B, H, W, C_in, C_out, stride)) return (int)cudaErrorInvalidValue;
   if (g.n_spatial < 1) return (int)cudaSuccess;
-  return (int)launch_conv_f32(static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w),
-                              static_cast<const float*>(bias), static_cast<float*>(out), g, wg,
-                              act, static_cast<cudaStream_t>(stream));
+  const float* xp = static_cast<const float*>(x);
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
+  const float* bp = static_cast<const float*>(bias);
+  float* op = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(stride == 1 ? launch_conv_f32<1>(xp, wp, bp, op, g, B, H, W, act, s)
+                           : launch_conv_f32<2>(xp, wp, bp, op, g, B, H, W, act, s));
 }
 #endif
 

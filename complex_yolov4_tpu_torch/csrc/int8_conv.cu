@@ -8,20 +8,19 @@
 // the stream it is given, allocates nothing, returns cudaGetLastError().
 //
 // Function. x (B, H, W, C_in) NHWC, either int8 (a chained producer already
-// requantized it) or bf16, which the kernel quantizes on its way into
-// shared memory as network.py:480-482 does: q = clip(rint(x * inv_s_x),
-// -127, 127), the product rounded once (__fmul_rn), ties to even. w (C_out,
-// K) int8 with K = k*k*C_in in (ky, kx, ci) order, k in {1, 3}, stride 1 or
-// 2, symmetric padding (k-1)/2 (stride 2 reads input rows 2i-1..2i+1, as
-// F.conv2d). Epilogue, in f32 and in the JAX order: h = y * (s_x *
-// w_scale[oc]) + b, then the activation; then one of
+// requantized it) or the compute dtype, bf16 or f32, which the kernel
+// quantizes on its way into shared memory as network.py:480-482 does: q =
+// clip(rint(x * inv_s_x), -127, 127), the product rounded once (__fmul_rn),
+// ties to even. w (C_out, K) int8 with K = k*k*C_in in (ky, kx, ci) order,
+// k in {1, 3}, stride 1 or 2, symmetric padding (k-1)/2 (stride 2 reads
+// input rows 2i-1..2i+1, as F.conv2d). Epilogue, in f32 and in the JAX
+// order: h = y * (s_x * w_scale[oc]) + b, then the activation; then one of
 //   mode 0: bf16(h);
 //   mode 1: int8 clip(rint(h * inv_s_next), -127, 127) (round half to
 //           even), the chained requantization to the consumer's domain;
 //   mode 2: the raw int32 sum y (for checks);
 //   mode 3: h itself, f32 (f32 compute: network.py:496 casts the epilogue
-//           to the f32 compute dtype), stored by the threads from the
-//           accumulators as the int32 sums are.
+//           to the f32 compute dtype).
 // h = y * scale + b is rounded as the plain version's separate ops are
 // (__fmul_rn / __fadd_rn keep nvcc from contracting it into an FMA); the
 // activation uses the fast exp and divide.
@@ -48,23 +47,48 @@
 //     output pixels' input pixels at one filter tap, the tensor map's
 //     bounding box and element strides giving the padding (zero fill) and
 //     the stride, 128 channels each (C_in % 128 == 0: a step is one tap);
-//   - for a bf16 input, the rows read as bf16 into registers by two
-//     producer warpgroups on alternate steps, quantized there and stored
-//     as int8: the quantize pass and its copy never touch device memory.
+//   - for a bf16 or f32 input, the rows read into registers by two
+//     producer warpgroups on alternate steps (16-byte loads), quantized
+//     there and stored as int8: the quantize pass and its copy never touch
+//     device memory.
 // A is stored in the same 128-byte swizzle as B, so both operands go to
 // wgmma m64n128k32 s8 by shared-memory descriptors (int32 accumulators in
 // registers). The epilogue runs on the accumulator registers, with the
 // activation and output mode fixed at compile time, writes the consumer's
-// 64 x 128 output into shared memory and sends it out with TMA stores. The
+// 64 x 128 output into shared memory and sends it out with TMA stores (an
+// f32 output, 32 KB against the 16 KB output tile, in two halves of 64
+// channels, the second written once the first has been read). The
 // tile's w_scale and bias are fetched before the K loop and read from
 // shared memory: read from device memory inside the epilogue, their loads
 // waited on each other's stores and took most of a small layer's time.
+//
+// The f32 contract (f32 compute: an f32 x on the 38 non-chained convs, int8
+// out on the 30 chained ones, f32 out on the rest). What bounds it: its
+// f32 input and output bytes (the 1x1 convs at 76 and 38 px are bounded by
+// bytes, the 3x3 convs by the int8 rate): 4 bytes an input and an output
+// value against the bf16 contract's 2, so its bound is higher
+// (chip_smoke.py phase 3 prints both). What the design does: the producer
+// threads read the f32 rows with 16-byte loads (a 16-channel chunk is four
+// of them), four rows at a time, quantize them in registers with the bf16
+// route's rounding and store int8 into the A stage, so no quantized copy
+// of x is written to or read from device memory; the f32 output leaves by
+// TMA stores like the others.
 
 #include <cuda_bf16.h>
 
 #include <mutex>
 
 #include "hopper.cuh"
+
+// The library build compiles this file in two parts, in parallel, so that
+// nvcc's work on the six kernel instances splits two ways (ops/_build.py
+// PARTS): CYV4_PART 1 the int8 and bf16 input routes and the entry point,
+// 2 the f32 input routes, which part 1 reaches through
+// cyv4_int8_launch_f32. Without CYV4_PART both are compiled.
+#ifndef CYV4_PART
+#define CYV4_PART 0
+#endif
+#define CYV4_HAS_PART(p) (CYV4_PART == 0 || CYV4_PART == (p))
 
 namespace {
 
@@ -76,17 +100,21 @@ constexpr int STAGE_OUT = WG_ROWS * WG_COLS * 2;  // its bf16 output tile
 constexpr int EPI_BYTES = 2 * WG_COLS * 4;        // its channels' w_scale and bias
 enum Act { ACT_LINEAR = 0, ACT_MISH = 1, ACT_LEAKY = 2, ACT_RELU = 3 };
 enum Mode { OUT_BF16 = 0, OUT_INT8 = 1, OUT_INT32 = 2, OUT_F32 = 3 };
-// How A reaches shared memory (A_BF16_WIDE: A_BF16 with the wide tile).
-enum ALoad { A_IM2COL = 0, A_BF16 = 1, A_TMA = 2, A_BF16_WIDE = 3 };
+// How A reaches shared memory (*_WIDE: with the wide tile).
+enum ALoad { A_IM2COL = 0, A_BF16 = 1, A_TMA = 2, A_BF16_WIDE = 3, A_F32 = 4, A_F32_WIDE = 5 };
+// The input dtype codes of Int8ConvArgs::x_dtype.
+enum XDtype { X_INT8 = 0, X_BF16 = 1, X_F32 = 2 };
 
 // The tile of a route. The two consumer warpgroups split a 128 x 128 tile
-// by rows, or, for a bf16 input with more than 128 output channels, a
-// 64 x 256 tile by columns: then each input row is loaded and quantized
+// by rows, or, for a bf16 or f32 input with more than 128 output channels,
+// a 64 x 256 tile by columns: then each input row is loaded and quantized
 // once for 256 output channels, not once for every 128.
 template <int AL>
 struct Tile {
-  static constexpr bool WIDE = AL == A_BF16_WIDE;
-  static constexpr bool BF16 = AL == A_BF16 || AL == A_BF16_WIDE;  // A from bf16 rows
+  static constexpr bool WIDE = AL == A_BF16_WIDE || AL == A_F32_WIDE;
+  static constexpr bool F32 = AL == A_F32 || AL == A_F32_WIDE;  // A from f32 rows
+  // A from bf16 or f32 rows, quantized by the producer threads
+  static constexpr bool QUANT = AL == A_BF16 || AL == A_BF16_WIDE || F32;
   static constexpr int BM = WIDE ? 64 : 128;   // output pixels
   static constexpr int BN = WIDE ? 256 : 128;  // output channels
   static constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
@@ -221,21 +249,27 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(1));
 }
 
-// Eight bf16 values -> eight int8 clip(rint(v * inv), -127, 127) in two
-// words, the product rounded once, ties to even: the clipped product plus
-// 1.5 * 2^23 rounds to an integer (ties to even) whose two's-complement low
-// byte is the int8, and byte permutes pack four of them, so no conversion
+// Four f32 values -> four int8 clip(rint(v * inv), -127, 127) in one word,
+// the product rounded once, ties to even: the clipped product plus 1.5 *
+// 2^23 rounds to an integer (ties to even) whose two's-complement low byte
+// is the int8, and byte permutes pack four of them, so no conversion
 // instruction runs.
-__device__ __forceinline__ uint32_t quantize4(uint32_t lo, uint32_t hi, float inv) {
-  const float v[4] = {__uint_as_float(lo << 16), __uint_as_float(lo & 0xFFFF0000u),
-                      __uint_as_float(hi << 16), __uint_as_float(hi & 0xFFFF0000u)};
+__device__ __forceinline__ uint32_t quantize4f(float4 v, float inv) {
+  const float f[4] = {v.x, v.y, v.z, v.w};
   uint32_t r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float c = fminf(fmaxf(__fmul_rn(v[i], inv), -127.0f), 127.0f);
+    const float c = fminf(fmaxf(__fmul_rn(f[i], inv), -127.0f), 127.0f);
     r[i] = __float_as_uint(__fadd_rn(c, 12582912.0f));
   }
   return __byte_perm(__byte_perm(r[0], r[1], 0x0040), __byte_perm(r[2], r[3], 0x0040), 0x5410);
+}
+
+// The same for four bf16 values in two words.
+__device__ __forceinline__ uint32_t quantize4(uint32_t lo, uint32_t hi, float inv) {
+  return quantize4f(make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xFFFF0000u),
+                                __uint_as_float(hi << 16), __uint_as_float(hi & 0xFFFF0000u)),
+                    inv);
 }
 
 __device__ __forceinline__ uint2 quantize8(uint4 v, float inv) {
@@ -261,17 +295,19 @@ __device__ __forceinline__ void tma_load_im2col(uint32_t dst, const CUtensorMap*
 // owns, waits for the stage to be free, asks for B by TMA and fills A.
 // An int8 input's A is one TMA load (A_TMA: a box of the (M, C_in)
 // matrix; A_IM2COL: the tile's 128 patch rows of one 128-byte K step), so
-// one thread of warpgroup 0 does all. For a bf16 input, thread t owns chunk
-// column t % 8 (16 bytes of K) of rows t / 8 + 16 j, j < BM / 16, loads
-// them, quantizes and stores them; two warpgroups (pwg 0, 1) take
-// alternate steps, so one quantizes while the other's loads are in flight.
+// one thread of warpgroup 0 does all. For a bf16 or f32 input, thread t
+// owns chunk column t % 8 (16 bytes of K: 16 channels) of rows t / 8 + 16
+// j, j < BM / 16, loads them, quantizes and stores them (f32: four rows at
+// a time, 256 bytes of loads in flight per thread); two warpgroups (pwg 0,
+// 1) take alternate steps, so one quantizes while the other's loads are in
+// flight.
 template <int AL>
 __device__ __forceinline__ void produce(const Geom& g, const void* __restrict__ x,
                                         const CUtensorMap* w_map, const CUtensorMap* x_map,
                                         uint32_t a_s, uint32_t b_s, uint32_t full,
                                         uint32_t empty, int pwg, int ptid) {
   using T = Tile<AL>;
-  if (!T::BF16 && (pwg != 0 || ptid != 0)) return;
+  if (!T::QUANT && (pwg != 0 || ptid != 0)) return;
   const int cc = ptid & 7, r0 = ptid >> 3;
   uint32_t it = 0;  // K steps issued by the block so far (ring position)
   for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
@@ -290,7 +326,7 @@ __device__ __forceinline__ void produce(const Geom& g, const void* __restrict__ 
       if (AL == A_IM2COL) base[j] = n;
     }
     for (int kc = 0; kc < g.nk; ++kc, ++it) {
-      if (T::BF16 && (int)(it & 1) != pwg) continue;
+      if (T::QUANT && (int)(it & 1) != pwg) continue;
       const uint32_t s = it % T::STAGES;
       mbar_wait(empty + 8 * s, ((it / T::STAGES) & 1) ^ 1);
       const uint32_t a_st = a_s + s * T::A_BYTES;
@@ -298,14 +334,49 @@ __device__ __forceinline__ void produce(const Geom& g, const void* __restrict__ 
       const int tap = k / g.C_in, ci = k - tap * g.C_in;
       const int ky = tap / g.ksize, kx = tap - ky * g.ksize;
       if (ptid == 0) {
-        mbar_expect_tx(full + 8 * s, T::BF16 ? T::B_BYTES : T::A_BYTES + T::B_BYTES);
+        mbar_expect_tx(full + 8 * s, T::QUANT ? T::B_BYTES : T::A_BYTES + T::B_BYTES);
         tma_load_2d(b_s + s * T::B_BYTES, w_map, kc * BK, n0, full + 8 * s);
         if (AL == A_TMA) tma_load_2d(a_st, x_map, kc * BK, m0, full + 8 * s);
         if (AL == A_IM2COL)
           tma_load_im2col(a_st, x_map, ci, iw0[0], ih0[0], base[0], kx, ky, full + 8 * s);
       }
-      if (!T::BF16) continue;
+      if (!T::QUANT) continue;
       const bool k_ok = k < g.K;
+      if constexpr (T::F32) {
+        const float* xp = static_cast<const float*>(x);
+#pragma unroll
+        for (int j0 = 0; j0 < T::BM / 16; j0 += 4) {
+          float4 v[4][4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = j0 + jj;
+            const int ih = ih0[j] + ky, iw = iw0[j] + kx;
+            const bool ok = k_ok && base[j] >= 0 && (unsigned)ih < (unsigned)g.H &&
+                            (unsigned)iw < (unsigned)g.W;
+            if (ok) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  xp + ((size_t)(base[j] + ih * g.W + iw) * g.C_in + ci));
+#pragma unroll
+              for (int e = 0; e < 4; ++e) v[jj][e] = __ldg(src + e);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) v[jj][e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int r = r0 + 16 * (j0 + jj);
+            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                             a_st + r * 128 + ((cc ^ (r & 7)) << 4)),
+                         "r"(quantize4f(v[jj][0], g.inv_s_x)), "r"(quantize4f(v[jj][1], g.inv_s_x)),
+                         "r"(quantize4f(v[jj][2], g.inv_s_x)), "r"(quantize4f(v[jj][3], g.inv_s_x))
+                         : "memory");
+          }
+        }
+        fence_proxy_async();
+        mbar_arrive(full + 8 * s);
+        continue;
+      }
       const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
       uint4 v[T::BM / 16][2];
 #pragma unroll
@@ -340,13 +411,15 @@ __device__ __forceinline__ void produce(const Geom& g, const void* __restrict__ 
 // The epilogue of a consumer warpgroup's 64 x 128 tile into its output
 // tile in shared memory, with the activation and output mode fixed at
 // compile time: a run-time switch per value put a branch around each
-// value's chain of dependent operations and left them unoverlapped.
+// value's chain of dependent operations and left them unoverlapped. An f32
+// output is written 64 channels (`part`) at a time.
 template <int ACT, int MODE>
 __device__ __forceinline__ void epilogue_tile(const int (&acc)[64], const Geom& g, uint32_t stg,
                                               const float* sc_p, const float* bi_p, int q,
-                                              int r_lo) {
+                                              int r_lo, int part) {
 #pragma unroll
   for (int j = 0; j < WG_COLS / 8; ++j) {
+    if (MODE == OUT_F32 && (j >> 3) != part) continue;
     const int nl = 8 * j + 2 * q;
     const float2 sc = *reinterpret_cast<const float2*>(sc_p + nl);
     const float2 bi = *reinterpret_cast<const float2*>(bi_p + nl);
@@ -362,6 +435,11 @@ __device__ __forceinline__ void epilogue_tile(const int (&acc)[64], const Geom& 
         const uint32_t at = stg + r * 128 + ((((nl >> 4) ^ (r & 7))) << 4) + (nl & 15);
         asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(at),
                      "h"((unsigned short)((q0 & 0xFF) | ((q1 & 0xFF) << 8))));
+      } else if (MODE == OUT_F32) {  // two boxes of 64 rows x 32 channels: the part's 64
+        const int c = nl & 63;
+        const uint32_t at = stg + (c >> 5) * (STAGE_OUT / 2) + r * 128 +
+                            ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+        asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at), "f"(h0), "f"(h1));
       } else {  // two boxes of 64 rows x 64 channels
         const __nv_bfloat162 v = __floats2bfloat162_rn(h0, h1);
         const uint32_t at = stg + (nl >> 6) * (STAGE_OUT / 2) + r * 128 +
@@ -376,20 +454,23 @@ __device__ __forceinline__ void epilogue_tile(const int (&acc)[64], const Geom& 
 template <int ACT>
 __device__ __forceinline__ void epilogue_act(const int (&acc)[64], const Geom& g, uint32_t stg,
                                              const float* sc_p, const float* bi_p, int q,
-                                             int r_lo) {
+                                             int r_lo, int part) {
   if (g.mode == OUT_INT8)
-    epilogue_tile<ACT, OUT_INT8>(acc, g, stg, sc_p, bi_p, q, r_lo);
+    epilogue_tile<ACT, OUT_INT8>(acc, g, stg, sc_p, bi_p, q, r_lo, part);
+  else if (g.mode == OUT_F32)
+    epilogue_tile<ACT, OUT_F32>(acc, g, stg, sc_p, bi_p, q, r_lo, part);
   else
-    epilogue_tile<ACT, OUT_BF16>(acc, g, stg, sc_p, bi_p, q, r_lo);
+    epilogue_tile<ACT, OUT_BF16>(acc, g, stg, sc_p, bi_p, q, r_lo, part);
 }
 
 __device__ __forceinline__ void epilogue(const int (&acc)[64], const Geom& g, uint32_t stg,
-                                         const float* sc_p, const float* bi_p, int q, int r_lo) {
+                                         const float* sc_p, const float* bi_p, int q, int r_lo,
+                                         int part = 0) {
   switch (g.act) {
-    case ACT_MISH: epilogue_act<ACT_MISH>(acc, g, stg, sc_p, bi_p, q, r_lo); break;
-    case ACT_LEAKY: epilogue_act<ACT_LEAKY>(acc, g, stg, sc_p, bi_p, q, r_lo); break;
-    case ACT_RELU: epilogue_act<ACT_RELU>(acc, g, stg, sc_p, bi_p, q, r_lo); break;
-    default: epilogue_act<ACT_LINEAR>(acc, g, stg, sc_p, bi_p, q, r_lo); break;
+    case ACT_MISH: epilogue_act<ACT_MISH>(acc, g, stg, sc_p, bi_p, q, r_lo, part); break;
+    case ACT_LEAKY: epilogue_act<ACT_LEAKY>(acc, g, stg, sc_p, bi_p, q, r_lo, part); break;
+    case ACT_RELU: epilogue_act<ACT_RELU>(acc, g, stg, sc_p, bi_p, q, r_lo, part); break;
+    default: epilogue_act<ACT_LINEAR>(acc, g, stg, sc_p, bi_p, q, r_lo, part); break;
   }
 }
 
@@ -413,7 +494,7 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
     // full: the TMA bytes plus, where the producer's threads write A, one
     // arrival from each of them; empty: one arrival per consumer warpgroup
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(full + 8 * s, T::BF16 ? 129 : 1);
+      mbar_init(full + 8 * s, T::QUANT ? 129 : 1);
       mbar_init(empty + 8 * s, 2);
     }
     mbar_fence_init();
@@ -474,10 +555,10 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
 
     // epilogue on the accumulators: lane (warp, l) holds rows 16 warp + l/4
     // (+ 8) of the warpgroup's 64 and channel pairs 8j + 2 (l % 4) of the
-    // tile. bf16 and int8 outputs go through the warpgroup's output tile in
-    // shared memory (128-byte swizzle) and leave by TMA stores, which clip
-    // the tile at M and C_out; int32 sums and f32 outputs are stored from
-    // the registers.
+    // tile. bf16, int8 and f32 outputs go through the warpgroup's output
+    // tile in shared memory (128-byte swizzle) and leave by TMA stores,
+    // which clip the tile at M and C_out; int32 sums, and outputs whose row
+    // is not a multiple of 16 bytes, are stored from the registers.
     // The previous tile's epilogue has read the scales (its last wg_sync),
     // so they are overwritten here and read after the next barrier.
     const int q = lane & 3, r_lo = warp * 16 + (lane >> 2);
@@ -501,9 +582,7 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
               const float sc0 = __fmul_rn(g.s_x, sc_p[nl]), sc1 = __fmul_rn(g.s_x, sc_p[nl + 1]);
               const float h0 = act_f32(__fadd_rn(__fmul_rn((float)y0, sc0), bi_p[nl]), g.act);
               const float h1 = act_f32(__fadd_rn(__fmul_rn((float)y1, sc1), bi_p[nl + 1]), g.act);
-              if (g.mode == OUT_F32) {
-                *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(h0, h1);
-              } else if (g.mode == OUT_INT8) {
+              if (g.mode == OUT_INT8) {
                 const int q0 = (int)fminf(fmaxf(rintf(__fmul_rn(h0, g.inv_s_next)), -127.0f), 127.0f);
                 const int q1 = (int)fminf(fmaxf(rintf(__fmul_rn(h1, g.inv_s_next)), -127.0f), 127.0f);
                 *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(out) + o) =
@@ -520,6 +599,26 @@ int8_conv_kernel(const void* __restrict__ x, const float* __restrict__ w_scale,
       continue;
     }
     const uint32_t stg = o_s + wg * STAGE_OUT;
+    if (g.mode == OUT_F32) {
+      // 32 KB of f32 against the 16 KB output tile: two parts of 64
+      // channels, each two boxes of 32; the second part is written once the
+      // first part's stores have read the tile
+#pragma unroll 1
+      for (int part = 0; part < 2 && nw + 64 * part < g.C_out; ++part) {
+        if (wt == 0) bulk_wait_read();  // the previous stores have read stg
+        wg_sync(1 + wg);
+        epilogue(acc, g, stg, sc_p, bi_p, q, r_lo, part);
+        fence_proxy_async();
+        wg_sync(1 + wg);
+        if (wt == 0 && mw < g.M) {
+          const int c = nw + 64 * part;
+          tma_store_2d(&o_map, stg, c, mw);
+          if (c + 32 < g.C_out) tma_store_2d(&o_map, stg + STAGE_OUT / 2, c + 32, mw);
+          bulk_commit();
+        }
+      }
+      continue;
+    }
     if (wt == 0) bulk_wait_read();  // the previous tile's stores have read stg
     wg_sync(1 + wg);
     epilogue(acc, g, stg, sc_p, bi_p, q, r_lo);
@@ -552,20 +651,21 @@ bool kmajor_map(CUtensorMap* map, const void* p, long long rows, int cols, int b
 }
 
 // The tensor map of the (M, C_out) output for the epilogue's TMA stores:
-// boxes of 64 rows x 128 bytes (64 bf16 or 128 int8 channels) in the
-// 128-byte swizzle. False for int32 sums and f32 outputs, and where the row is not a
+// boxes of 64 rows x 128 bytes (32 f32, 64 bf16 or 128 int8 channels) in
+// the 128-byte swizzle. False for int32 sums, and where the row is not a
 // multiple of 16 bytes, which then leave by the threads' own stores.
 bool out_map(CUtensorMap* map, void* p, int mode, long long rows, int cols) {
   const EncodeTiledFn encode = encode_tiled();
-  const int elem = mode == OUT_BF16 ? 2 : 1;
-  if (encode == nullptr || mode == OUT_INT32 || mode == OUT_F32 || (cols * elem) % 16)
-    return false;
+  const int elem = mode == OUT_F32 ? 4 : mode == OUT_BF16 ? 2 : 1;
+  if (encode == nullptr || mode == OUT_INT32 || (cols * elem) % 16) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), 64};
   const cuuint32_t estr[2] = {1, 1};
-  return encode(map, mode == OUT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                2, p, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUtensorMapDataType type = mode == OUT_F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : mode == OUT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return encode(map, type, 2, p, dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -679,18 +779,37 @@ cudaError_t launch(const void* x, const void* w, Geom g, const float* w_scale, c
 
 }  // namespace
 
+// The f32 input routes for cyv4_int8_conv (part 2): `geom` is the Geom it
+// filled in, `o_map` its output map; the caller holds host_mu.
+extern "C" int cyv4_int8_launch_f32(const void* x, const void* w, const void* geom,
+                                    const float* w_scale, const float* bias, void* out,
+                                    const CUtensorMap* o_map, void* stream, int dev)
+#if CYV4_HAS_PART(2)
+{
+  const Geom& g = *static_cast<const Geom*>(geom);
+  const CUtensorMap x_map{};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g.C_out > WG_COLS)
+    return (int)launch<A_F32_WIDE>(x, w, g, w_scale, bias, out, x_map, *o_map, s, dev);
+  return (int)launch<A_F32>(x, w, g, w_scale, bias, out, x_map, *o_map, s, dev);
+}
+#else
+    ;
+#endif
+
+#if CYV4_HAS_PART(1)
 // The arguments of one call, in one struct: ctypes converts a struct
 // pointer in a fraction of the time it takes over 19 scalar arguments, and
 // the host's cost counts on each of path 2's 68 layers.
-// x (B, H, W, C_in) NHWC, int8 (x_bf16 == 0) or bf16 (x_bf16 == 1, then
-// quantized with inv_s_x); w (C_out, k*k*C_in) int8; w_scale, bias (C_out,)
+// x (B, H, W, C_in) NHWC, int8 (x_dtype 0), bf16 (1) or f32 (2; bf16 and
+// f32 are quantized with inv_s_x); w (C_out, k*k*C_in) int8; w_scale, bias (C_out,)
 // f32; out (B, Ho, Wo, C_out) bf16 (mode 0), int8 (mode 1), int32 (mode
 // 2) or f32 (mode 3). C_in % 16 == 0 (% 128 for an int8 x of a 3x3 or strided conv),
 // C_out % 8 == 0; x and w 16-byte aligned. The kernel runs on `device`
 // (x's), whichever device is current; the current one is restored.
 struct Int8ConvArgs {
   const void* x;
-  int x_bf16;
+  int x_dtype;
   const void *w, *w_scale, *bias;
   void* out;
   int B, H, W, C_in, C_out, ksize, stride;
@@ -730,14 +849,20 @@ int run(const Int8ConvArgs* a) {
   if (g.M < 1) return (int)cudaSuccess;
   CUtensorMap x_map{}, o_map{};
   g.tma_out = cached_map(&o_map, mode, out, g.M, C_out) ? 1 : 0;
+  // an f32 row (C_out % 8 == 0) is always a multiple of 16 bytes: the
+  // direct-store epilogue has no f32 mode
+  if (mode == OUT_F32 && !g.tma_out) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(a->stream);
   const float* ws = static_cast<const float*>(a->w_scale);
   const float* bs = static_cast<const float*>(a->bias);
-  if (a->x_bf16) {
+  if (a->x_dtype == X_BF16) {
     if (C_out > WG_COLS)
       return (int)launch<A_BF16_WIDE>(x, w, g, ws, bs, out, x_map, o_map, s, dev);
     return (int)launch<A_BF16>(x, w, g, ws, bs, out, x_map, o_map, s, dev);
   }
+  if (a->x_dtype == X_F32)
+    return cyv4_int8_launch_f32(x, w, &g, ws, bs, out, &o_map, a->stream, dev);
+  if (a->x_dtype != X_INT8) return (int)cudaErrorInvalidValue;
   if (ksize == 1 && stride == 1) {
     if (!cached_map(&x_map, MAP_KMAJOR, x, g.M, C_in, Tile<A_TMA>::BM))
       return (int)cudaErrorInvalidValue;
@@ -762,3 +887,4 @@ extern "C" int cyv4_int8_conv(const Int8ConvArgs* a) {
   if (prev != a->device) cudaSetDevice(prev);
   return code;
 }
+#endif

@@ -297,12 +297,9 @@ class Darknet(nn.Module):
 
     def _int8_conv(self, i: int, h: torch.Tensor, kernels: bool) -> torch.Tensor:
         kw = self._int8_kw[i]
-        x = h.permute(0, 2, 3, 1)
-        # int8 from a chained producer, or bf16 that the kernel quantizes as
-        # it loads; any other dtype is quantized here by the plain pass
-        if h.dtype not in (torch.int8, torch.bfloat16):
-            x = int8_mod.quantize_input(x, kw["inv_s_x"])
-        x = x.contiguous()
+        # int8 from a chained producer, or the compute dtype (bf16 or f32),
+        # which the kernel quantizes as it loads it
+        x = h.permute(0, 2, 3, 1).contiguous()
         fn = int8_mod.int8_conv if kernels else int8_mod.int8_conv_plain
         y = fn(x, getattr(self, f"wq{i}"), getattr(self, f"wqs{i}"),
                getattr(self, f"bq{i}"), **kw)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -25,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 # sources compiled once per part (-DCYV4_PART=k), each part by its own nvcc,
 # so that the instances of one large source build in parallel
-PARTS = {"conv3x3.cu": (1, 2, 3)}
+PARTS = {"conv3x3.cu": (1, 2, 3), "int8_conv.cu": (1, 2)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -33,7 +34,7 @@ _lib: Optional[ctypes.CDLL] = None
 class Int8ConvArgs(ctypes.Structure):
     """`cyv4_int8_conv`'s one argument (csrc/int8_conv.cu Int8ConvArgs)."""
 
-    _fields_ = ([("x", ctypes.c_void_p), ("x_bf16", ctypes.c_int)]
+    _fields_ = ([("x", ctypes.c_void_p), ("x_dtype", ctypes.c_int)]
                 + [(n, ctypes.c_void_p) for n in ("w", "w_scale", "bias", "out")]
                 + [(n, ctypes.c_int) for n in ("B", "H", "W", "C_in", "C_out", "ksize",
                                                "stride")]
@@ -72,8 +73,8 @@ def build() -> str:
     """Compile the kernels if the library for the current sources is
     missing: one nvcc per source (per part, `PARTS`), all started together,
     then one link.
-    Returns nvcc's log (its -Xptxas -v register and shared-memory lines),
-    kept beside the library for later processes."""
+    Returns nvcc's log (each unit's seconds and its -Xptxas -v register and
+    shared-memory lines), kept beside the library for later processes."""
     so = library_path()
     log = so.with_suffix(".log")
     if so.exists() and log.exists():
@@ -82,17 +83,27 @@ def build() -> str:
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     units = _units()
-    objs, procs = [], []
+    objs, logs, procs = [], [], []
+    t0 = time.perf_counter()
     for src, defines, name in units:
         obj = BUILD_DIR / f"{tag}.{name}.o"
         objs.append(obj)
-        procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs.append(obj.with_suffix(".nvcc.log"))
+        with open(logs[-1], "w") as sink:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)],
+                stdout=sink, stderr=subprocess.STDOUT))
+    seconds = {}
+    while len(seconds) < len(procs):  # each unit's own wall time
+        for i, proc in enumerate(procs):
+            if i not in seconds and proc.poll() is not None:
+                seconds[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     texts, failed = [], []
-    for (src, defines, name), proc in zip(units, procs):
-        out, _ = proc.communicate()
-        texts.append(f"== {src.name} {' '.join(defines)}\n{out}")
+    for i, ((src, defines, name), proc) in enumerate(zip(units, procs)):
+        out = logs[i].read_text()
+        logs[i].unlink()
+        texts.append(f"== {src.name} {' '.join(defines)} ({seconds[i]:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(name)
     text = "".join(texts)

@@ -4,7 +4,7 @@ Counterpart of the int8 branch of `complex_yolov4_tpu/models/network.py`
 `apply` (lines 456-501), which XLA computes on the TPU (there is no Pallas
 original; torch has no int8 conv2d on CUDA):
 
-    x_q   = x, or for a bf16 x                network.py:480-482
+    x_q   = x, or for a bf16 or f32 x         network.py:480-482
             clip(round(x * (1/s_x)), -127, 127) as int8 (half to even)
     y_i32 = conv(x_q, w_i8)                   k in {1, 3}, stride 1 or 2,
                                               symmetric padding (k-1)/2
@@ -14,14 +14,16 @@ original; torch has no int8 conv2d on CUDA):
             clip(round(h * (1/s_x_next)), -127, 127) as int8 (half to even)
 
 `int8_conv` is the wrapper: a CUDA tensor goes to the hand-written Hopper
-kernel (`csrc/int8_conv.cu`, `cyv4_int8_conv`), which quantizes a bf16
-input on its way into shared memory, or the call raises; a CPU tensor goes
-to `int8_conv_plain`, the plain PyTorch version (`quantize_input`, then an
-exact int32 conv from a float64 conv of the int8-valued tensors, |sum| <=
-9 * 2048 * 127^2 < 2^53, then the same f32 epilogue as separate ops).
+kernel (`csrc/int8_conv.cu`, `cyv4_int8_conv`), which quantizes a bf16 or
+f32 input on its way into shared memory, or the call raises; a CPU tensor
+goes to `int8_conv_plain`, the plain PyTorch version (`quantize_input`,
+then an exact int32 conv from a float64 conv of the int8-valued tensors,
+|sum| <= 9 * 2048 * 127^2 < 2^53, then the same f32 epilogue as separate
+ops).
 
-`quantize_input` is the plain elementwise pass that brings a bf16
-activation to a non-chained conv's int8 domain, as `network.py:480-482`.
+`quantize_input` is the plain elementwise pass that brings a bf16 or f32
+activation to a non-chained conv's int8 domain, as `network.py:480-482`;
+only the plain version runs it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ from .activations import ACT_CODES, act
 from .conv3x3 import im2col_nhwc
 
 OUT_MODES = {"bf16": 0, "int8": 1, "int32": 2, "f32": 3}
+# the kernel's input dtype codes (Int8ConvArgs.x_dtype); bf16 and f32 are
+# quantized with inv_s_x
+X_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
 
 def quantize_input(h: torch.Tensor, inv_s_x: float) -> torch.Tensor:
@@ -79,9 +84,9 @@ def epilogue(y: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor, *, s_x:
 
 def int8_conv_plain(x, w_q, w_scale, bias, *, ksize, stride, s_x, activation,
                     out="bf16", inv_s_next=0.0, inv_s_x=None):
-    """Plain PyTorch version of the kernel, on x's device: a bf16 x is
-    quantized with `inv_s_x` first."""
-    x_q = quantize_input(x, inv_s_x) if x.dtype == torch.bfloat16 else x
+    """Plain PyTorch version of the kernel, on x's device: a bf16 or f32 x
+    is quantized with `inv_s_x` first."""
+    x_q = x if x.dtype == torch.int8 else quantize_input(x, inv_s_x)
     y = conv_int32_plain(x_q, w_q, ksize=ksize, stride=stride)
     return epilogue(y, w_scale, bias, s_x=s_x, activation=activation, out=out,
                     inv_s_next=inv_s_next)
@@ -92,11 +97,11 @@ _OUT_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "int32": torch.int32,
 
 
 def _check(x, w_q, w_scale, bias, ksize, stride, activation, out, inv_s_x):
-    if x.dim() != 4 or x.dtype not in (torch.int8, torch.bfloat16):
-        raise TypeError(f"x must be (B, H, W, C_in) int8 or bf16, got {tuple(x.shape)} "
+    if x.dim() != 4 or x.dtype not in X_DTYPES:
+        raise TypeError(f"x must be (B, H, W, C_in) int8, bf16 or f32, got {tuple(x.shape)} "
                         f"{x.dtype}")
-    if x.dtype == torch.bfloat16 and inv_s_x is None:
-        raise ValueError("a bf16 x needs inv_s_x, the float32 reciprocal of its scale")
+    if x.dtype != torch.int8 and inv_s_x is None:
+        raise ValueError(f"a {x.dtype} x needs inv_s_x, the float32 reciprocal of its scale")
     c_in = x.shape[-1]
     if ksize not in (1, 3) or stride not in (1, 2):
         raise ValueError(f"ksize {ksize}, stride {stride}: need k in (1, 3), stride 1 or 2")
@@ -133,14 +138,14 @@ def int8_conv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     """int8 conv + epilogue, NHWC.
 
     Args:
-      x: (B, H, W, C_in) int8 (already in the conv's int8 domain) or bf16
-        (quantized with `inv_s_x` inside the kernel), contiguous, C_in % 16
-        == 0; C_in % 128 == 0 for an int8 x of a 3x3 or strided conv (every
-        quantized conv of the four topologies has C_in % 128 == 0).
+      x: (B, H, W, C_in) int8 (already in the conv's int8 domain), bf16 or
+        f32 (quantized with `inv_s_x` inside the kernel), contiguous, C_in %
+        16 == 0; C_in % 128 == 0 for an int8 x of a 3x3 or strided conv
+        (every quantized conv of the four topologies has C_in % 128 == 0).
       w_q: (C_out, k*k*C_in) int8 from `pack_weight`.
       w_scale, bias: (C_out,) float32.
       s_x: the input's scale (a float32 value); inv_s_x: its float32
-        reciprocal, for a bf16 x; inv_s_next: the float32 reciprocal of the
+        reciprocal, for a bf16 or f32 x; inv_s_next: the float32 reciprocal of the
         consumer's s_x, for out="int8".
       out: "bf16", "f32" (f32 compute), "int8" (chained requantization) or
         "int32" (the raw sum).
@@ -156,11 +161,11 @@ def int8_conv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     y = torch.empty((b, out_size(h, ksize, stride), out_size(w, ksize, stride), c_out),
                     dtype=_OUT_DTYPES[out], device=x.device)
     lib = _build.load()
-    x_bf16 = x.dtype is torch.bfloat16
+    x_dtype = X_DTYPES[x.dtype]
     dev = x.get_device()
     code = lib.cyv4_int8_conv(_build.Int8ConvArgs(
-        x.data_ptr(), x_bf16, w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        b, h, w, c_in, c_out, ksize, stride, s_x, inv_s_x if x_bf16 else 0.0,
+        x.data_ptr(), x_dtype, w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        b, h, w, c_in, c_out, ksize, stride, s_x, inv_s_x if x_dtype else 0.0,
         ACT_CODES[activation], OUT_MODES[out], inv_s_next,
         torch._C._cuda_getCurrentRawStream(dev), dev))
     if code:

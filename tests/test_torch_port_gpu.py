@@ -121,13 +121,20 @@ def test_conv3x3_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, fill)
         _check_ones(got, c_in)
 
 
-# The f32 instances (wgmma for C_in 32 and 64, mma.sync for 128, the stride
-# at run time) on the main-path shapes, ragged tiles and padded C_in.
+# The f32 contract: one instance per stride (the stride a template
+# parameter), C_in 32, 64 and 128 as 1, 2 and 4 ring units a tile (C_in 128
+# at stride 2 with a one-unit ring), on the main-path shapes, ragged tiles
+# at both strides (H and W not multiples of the 4 x 16 tile: the TMA
+# stores clip them), padded C_in, and C_out 8, 24 and 40 (a part-filled
+# 32-channel output box, the second one skipped).
 @pytest.mark.parametrize("c_in,c_out,stride,act,hw,batch,fill", [
     (32, 64, 2, "mish", 608, 1, "rand"), (32, 64, 1, "mish", 304, 2, "rand"),
     (64, 128, 2, "mish", 304, 1, "rand"), (64, 64, 1, "leaky", 152, 2, "rand"),
     (128, 128, 1, "linear", 130, 2, "rand"), (128, 64, 2, "mish", 256, 1, "rand"),
-    (24, 40, 2, "relu", (140, 260), 1, "rand"), (64, 64, 1, "linear", (130, 136), 1, "ones")])
+    (24, 40, 2, "relu", (140, 260), 1, "rand"), (64, 64, 1, "linear", (130, 136), 1, "ones"),
+    (32, 64, 1, "mish", (130, 136), 3, "rand"), (64, 64, 2, "leaky", (130, 268), 1, "rand"),
+    (128, 64, 2, "relu", (132, 260), 1, "rand"), (16, 24, 1, "mish", 136, 2, "rand"),
+    (32, 8, 2, "linear", 256, 1, "rand"), (32, 64, 1, "linear", (132, 140), 2, "ones")])
 def test_conv3x3_f32_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, fill):
     dev = _cuda()
     x, w, b = _operands(dev, batch, hw, c_in, c_out, torch.float32, fill=fill)
@@ -281,6 +288,9 @@ def test_fused_stage_kernel_matches_plain(name, span, hw, batch):
     assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * float(ref.float().abs().max())
 
 
+# src: the input dtype, int8 (A by TMA: a box for 1x1 stride 1, im2col
+# otherwise) or bf16 / f32 (quantized by the producer threads; 64 x 256
+# tiles where C_out > 128). Every case also checks the f32 output mode.
 @pytest.mark.parametrize("k,stride,c_in,c_out,hw,act,src,batch", [
     pytest.param(1, 1, 256, 128, 19, "mish", "int8", 2, id="1-1-256-128-19-mish"),
     pytest.param(3, 1, 256, 256, 20, "leaky", "int8", 2, id="3-1-256-256-20-leaky"),
@@ -296,11 +306,20 @@ def test_fused_stage_kernel_matches_plain(name, span, hw, batch):
     pytest.param(3, 1, 256, 256, 19, "mish", "int8", 1, id="3-1-256-256-19-int8-b1"),
     pytest.param(3, 2, 256, 128, 19, "leaky", "int8", 3, id="3-2-256-128-19-int8-odd-b3"),
     pytest.param(1, 1, 256, 384, 19, "mish", "bf16", 2, id="1-1-256-384-19-bf16-wide-ragged"),
-    pytest.param(1, 1, 512, 136, 19, "leaky", "bf16", 1, id="1-1-512-136-19-bf16-wide-8")])
+    pytest.param(1, 1, 512, 136, 19, "leaky", "bf16", 1, id="1-1-512-136-19-bf16-wide-8"),
+    pytest.param(1, 1, 256, 128, 76, "mish", "f32", 2, id="1-1-256-128-76-f32"),
+    pytest.param(1, 1, 512, 512, 19, "leaky", "f32", 3, id="1-1-512-512-19-f32-wide-b3"),
+    pytest.param(3, 1, 256, 512, 38, "mish", "f32", 1, id="3-1-256-512-38-f32-wide"),
+    pytest.param(3, 2, 256, 512, 38, "mish", "f32", 2, id="3-2-256-512-38-f32-wide"),
+    pytest.param(3, 2, 512, 128, 19, "relu", "f32", 1, id="3-2-512-128-19-f32-odd"),
+    pytest.param(1, 1, 256, 136, 19, "linear", "f32", 2, id="1-1-256-136-19-f32-wide-ragged"),
+    pytest.param(1, 2, 256, 128, 22, "mish", "f32", 1, id="1-2-256-128-22-f32"),
+    pytest.param(3, 1, 128, 64, 20, "leaky", "f32", 2, id="3-1-128-64-20-f32-c_out-64")])
 def test_int8_kernel_matches_plain(k, stride, c_in, c_out, hw, act, src, batch):
-    """int32 sums exactly equal (a bf16 input quantized in the kernel as by
-    `quantize_input`); the f32 epilogue's activation uses the fast exp and
-    divide, so bf16 within 1 ulp and requantized int8 within 1."""
+    """int32 sums exactly equal (a bf16 or f32 input quantized in the kernel
+    as by `quantize_input`); the f32 epilogue's activation uses the fast exp
+    and divide, so bf16 within 1 ulp, requantized int8 within 1 and f32
+    within 1e-5 of max |plain|."""
     from complex_yolov4_tpu_torch.ops import int8_conv as i8
 
     dev = _cuda()
@@ -309,7 +328,12 @@ def test_int8_kernel_matches_plain(k, stride, c_in, c_out, hw, act, src, batch):
         x = torch.from_numpy(rng.integers(-127, 128, (batch, hw, hw, c_in)).astype(np.int8))
     else:  # N(0, 1) against a clip at +-3: a few values saturate
         x = torch.from_numpy(rng.normal(0, 1, (batch, hw, hw, c_in)).astype(np.float32))
-        x = x.to(torch.bfloat16)
+        if src == "f32":  # a tenth of the values on exact half-steps (n + 1/2) s_x
+            ties = torch.from_numpy(rng.random(x.shape) < 0.1)
+            halves = torch.from_numpy(rng.integers(-130, 130, x.shape) + 0.5).float() * (3.0 / 127.0)
+            x = torch.where(ties, halves, x)
+        else:
+            x = x.to(torch.bfloat16)
     x = x.to(dev)
     w = torch.from_numpy(rng.integers(-127, 128, (c_out, k * k * c_in)).astype(np.int8)).to(dev)
     scale = torch.from_numpy(rng.uniform(1e-5, 1e-4, c_out).astype(np.float32)).to(dev)
@@ -321,12 +345,57 @@ def test_int8_kernel_matches_plain(k, stride, c_in, c_out, hw, act, src, batch):
     got32 = i8.int8_conv(x, w, scale, b, out="int32", **kw)
     got = i8.int8_conv(x, w, scale, b, **kw)
     got8 = i8.int8_conv(x, w, scale, b, out="int8", inv_s_next=31.0, **kw)
+    got_f32 = i8.int8_conv(x, w, scale, b, out="f32", **kw)
     torch.cuda.synchronize()
-    assert i8.int8_conv.launches == n0 + 3
+    assert i8.int8_conv.launches == n0 + 4
     assert torch.equal(got32, i8.int8_conv_plain(x, w, scale, b, out="int32", **kw))
     assert _max_ulps(got, i8.int8_conv_plain(x, w, scale, b, **kw)) <= 1.0
     ref8 = i8.int8_conv_plain(x, w, scale, b, out="int8", inv_s_next=31.0, **kw)
     assert int((got8.int() - ref8.int()).abs().max()) <= 1
+    ref_f32 = i8.int8_conv_plain(x, w, scale, b, out="f32", **kw)
+    assert got_f32.dtype == torch.float32 and got_f32.shape == ref_f32.shape
+    assert float((got_f32 - ref_f32).abs().max()) <= 1e-5 * float(ref_f32.abs().max())
+
+
+def test_f32_int8_forward_never_quantizes_on_the_host(monkeypatch):
+    """An f32 `--quantize int8` forward on the card hands each non-chained
+    int8 conv its f32 activation (the kernel quantizes it): the plain
+    `quantize_input` pass is never called. Heads against the all-plain run
+    (which does call it) within chip_smoke's int8 path bounds, 2e-2 of each
+    column's scale and 1e-2 on conf/cls: the f32 3x3 kernel sums in another
+    order than its plain version (about 1e-6 relative), which moves an
+    activation lying that close to a half-step by one int8 step."""
+    from complex_yolov4_tpu_torch.models import network, quantize, weights, zoo
+    from complex_yolov4_tpu_torch.ops import int8_conv as i8
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4_tiny")
+    folded = weights.fold_batchnorm(spec, *weights.init_params_np(spec, 0))
+    x = np.random.default_rng(1).uniform(0, 1, (2, 608, 608, 3)).astype(np.float32)
+    act_max = quantize.calibrate(spec, folded, [x], device=dev, compute_dtype=torch.float32)
+    tree = quantize.make_quant(spec, folded, act_max)
+    model = network.Darknet(spec, weights.from_folded(spec, folded), compute_dtype=torch.float32,
+                            device=dev, quant=weights.from_jax_quant(spec, tree))
+    n_quant = sum(r == "int8" for r in model.routes(608).values())
+    assert n_quant > 0
+
+    def refuse(*args, **kw):
+        raise AssertionError("quantize_input called on the card's int8 path")
+
+    xs = torch.from_numpy(x).permute(0, 3, 1, 2).to(dev)
+    with monkeypatch.context() as m:
+        m.setattr(i8, "quantize_input", refuse)
+        n0 = i8.int8_conv.launches
+        with torch.inference_mode():
+            out = model(xs)
+        torch.cuda.synchronize()
+        assert i8.int8_conv.launches - n0 == n_quant
+    assert bool(torch.isfinite(out).all())
+    with torch.inference_mode():
+        ref = model(xs, kernels=False)
+    diff = (out - ref).abs().amax(dim=(0, 1))
+    assert float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max()) <= 2e-2
+    assert float(diff[6:].max()) <= 1e-2
 
 
 def test_new_wrappers_raise_not_fall_back():

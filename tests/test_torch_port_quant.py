@@ -152,13 +152,17 @@ def test_quantize_input_matches_jax():
 
 
 @pytest.mark.parametrize("case", ["x_dtype", "w_cols", "scale_dtype", "c_in", "ksize",
-                                  "out", "activation", "c_in_int8_3x3"])
+                                  "out", "activation", "c_in_int8_3x3", "f32_without_inv_s_x"])
 def test_int8_wrapper_rejects(case):
+    """A float32 x is taken with its inv_s_x (test_torch_port_f32_contracts.py)
+    and refused without one; float64 is not taken at all."""
     x = torch.zeros((1, 8, 8, 256), dtype=torch.int8)
     w = torch.zeros((64, 9 * 256), dtype=torch.int8)
     s, b = torch.ones(64), torch.zeros(64)
     kw = {"ksize": 3, "stride": 1, "s_x": 0.1, "activation": "mish", "out": "bf16"}
     if case == "x_dtype":
+        x, kw["inv_s_x"] = x.double(), 10.0
+    elif case == "f32_without_inv_s_x":
         x = x.float()
     elif case == "w_cols":
         w = w[:, :-1].contiguous()
