@@ -75,6 +75,26 @@ fallback):
    on each path the decoded heads of the kernel path are compared with the
    all-plain path on the card (path 2 at batch 2: the plain int8 convs run
    in float64);
+   (s) sighted checks: the seed-0 weights carry almost nothing of the
+   input to the heads (a layer of the early backbone zeroed moves them by
+   about 1e-6), so both paths and the f32 3x3 route are built again from
+   `sighted.sighted_params_np` (every conv rescaled to unit RMS on one
+   synthetic raster) and their kernel path held to their all-plain path
+   on 2 frames (SIGHTED_CHECKS: the heads of path 1, path 2 and f32 with
+   the route on, on `rms_err`; path 2 through layer 25 on `rms_err` and
+   through layer 85 on `share_moved`), each tolerance 1.5x the largest
+   floor measured on the card (the all-plain path against the same path
+   with the routed stem and 3x3 layers on cuDNN and the fused segments
+   layer by layer), the floor printed beside it; then planted faults (the
+   stem's, layer 1's, layer 8's in fused segment 2-10 and the first int8
+   conv's weights zeroed in the kernel path's buffers; for layer 85 the
+   int8 convs 25, 27, 55 (strided) and 59 and 62 (chained)) must move
+   each check by at least 10x its tolerance (path 2's heads 2x, see
+   SIGHTED_CHECKS), the seed-0 head check's move
+   printed beside it; then the f32 route: the default f32 forward (every
+   conv cuDNN f32, TF32 off) against the CPU's f32 forward of the same
+   sighted model within 1e-4 per column, and the 3x3 route
+   (`conv3x3.F32_ENABLED`) against the default, per head column;
 5. evaluate — a synthetic KITTI tree of 16 val frames (the port's
    `generate_kitti_dataset`, in a temporary directory) evaluated by the
    port's `cli.evaluate.main` (complex_yolov4 @608, batch 8, bf16, conf
@@ -101,13 +121,15 @@ fallback):
    `--subdivisions 2` (4 micro-batches, 2 optimizer steps), TrainConfig's
    other defaults (Adam, cosine LR, hflip 0.5, device raster from points),
    one epoch with its validation in f32 and one checkpoint, the launch
-   counts set to 0 just before: training launches no kernel, validation
-   the 3x3 kernel's f32 instance as `model.routes(608)` of the f32 model
-   predicts. Then the checkpoint is served by `cli.evaluate.main` with its
-   default f32 compute (the weights checked equal to the trained module's,
-   the launches as predicted, the decoded heads of 2 frames within 1e-3 of
-   the all-plain f32 path, and f32 eval frames/s of a warm pass over 3 batches
-   of 8, the first left out), and again, on its first 8 frames, with
+   counts set to 0 just before: training and the all-f32 validation
+   launch no kernel. Then the checkpoint is served by `cli.evaluate.main`
+   with its default f32 compute (the weights checked equal to the trained
+   module's, no launch, and f32 eval frames/s of a warm pass over 3
+   batches of 8, the first left out), again with the f32 3x3 route
+   switched on (`conv3x3.F32_ENABLED`: the 3x3 kernel's f32 instance as
+   `model.routes(608)` predicts, the decoded heads of 2 frames within 1e-3
+   of the all-plain f32 path, its mAP beside the default's, and its warm
+   frames/s), and again, on its first 8 frames, with
    `--quantize int8` in f32 compute (calibrated in f32; the int8 convs
    write f32, or int8 where chained, 68 int8 launches per batch; the
    kernel quantizes each f32 input, so the plain `quantize_input` pass
@@ -223,6 +245,7 @@ calls in the serving process), the f32 rows' over the f32 runs of phases
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import importlib
@@ -252,6 +275,42 @@ PROB_ABS_TOL = 1e-2
 # only the f32 summation order differs; an H100 reads about 1e-6): per
 # column relative and conf/cls absolute
 F32_HEADS_TOL = 1e-3
+# phase 4 (s), sighted checks, kernel path against all-plain path on the
+# first 2 frames of request 0: {label: (model, layer the check reads or None
+# for the decoded heads, statistic (`rms_err`, or `share_moved`: the share
+# of elements that moved by more than half the RMS), tolerance on it,
+# planted faults it takes, their least move in tolerances)}. Each tolerance
+# is 1.5x the largest floor (the all-plain path against `cudnn_routed`)
+# over 6 requests (3 for the layer checks) on an NVIDIA H100 80GB HBM3 at
+# 700 W: `rms_err` path 1 0.0188-0.0229, path 2 0.152-0.157, path 2 at
+# layer 25 0.0283-0.0287, f32 1.98e-4-2.81e-4; `share_moved` path 2 at
+# layer 85 2.75e-4-7.53e-4. Path 2's `rms_err` sits 15% apart at the heads
+# and 10% from layer 56 on between two correct implementations: a one-ulp
+# difference upstream flips int8 steps (the int8 strided 3x3 at 55 doubles
+# it), and a fault moves `rms_err` by 1.0 at most, so its heads need 2x;
+# the 10x is asked of path 2 through layer 25, which holds all four
+# kernels (stem, 3x3 on layers 1 and 11, both fused segments, the first
+# int8 conv), and through layer 85, the end of the backbone's 38-px stage,
+# by `share_moved`: a flipped int8 step moves an element by a fraction of
+# the RMS, a zeroed layer moves most elements by more than half of it; it
+# holds the int8 convs of layers 25-85, the strided one and the first
+# chained ones (int8 out, scale handed on) among them.
+SIGHTED_CHECKS = {"path 1": ("path 1", None, "rms_err", 0.035, ("stem", "3x3"), 10.0),
+                  "path 2": ("path 2", None, "rms_err", 0.24,
+                             ("stem", "3x3", "fused 2-10", "int8"), 2.0),
+                  "path 2 to layer 25": ("path 2", 25, "rms_err", 0.043,
+                                         ("stem", "3x3", "fused 2-10", "int8"), 10.0),
+                  "path 2 to layer 85": ("path 2", 85, "share_moved", 1.13e-3,
+                                         ("int8", "int8 27", "int8 strided 55",
+                                          "int8 chained 59", "int8 chained 62"), 10.0),
+                  "f32": ("f32", None, "rms_err", 4.3e-4, ("3x3",), 10.0)}
+# the layers whose conv weights the planted faults zero
+FAULT_LAYERS = {"stem": 0, "3x3": 1, "fused 2-10": 8, "int8": 25, "int8 27": 27,
+                "int8 strided 55": 55, "int8 chained 59": 59, "int8 chained 62": 62}
+# the default f32 forward on the card (all cuDNN f32, TF32 off) against the
+# CPU's f32 forward of the same sighted model, per column relative and
+# conf/cls absolute
+F32_ROUTE_TOL = 1e-4
 MODEL = "complex_yolov4"
 # kernel launches per request. Path 1: layer 0 -> stem, layers 1, 6, 11,
 # 16, 19 -> conv3x3. Path 2: layer 0 -> stem, layers 1, 11 -> conv3x3,
@@ -965,32 +1024,45 @@ def counters():
             "fused_stage": fused_stage.apply_segment, "int8_conv": int8_conv.int8_conv}
 
 
-def build_models(dev):
-    """(spec, path-1 model, path-2 model): complex_yolov4 @608 bf16 from
-    seed-0 weights; path 2 quantized by `default_skip` after calibration on
-    2 synthetic frames (as bench.py does), with both fused CSP stages."""
+def calib_rasters(dev):
+    """The 2 synthetic frames (seeds 100, 101) path 2 calibrates on, (2, 608,
+    608, 3) f32 numpy."""
     from complex_yolov4_tpu_torch.data import bev, synthetic
+
+    clouds = [bev.remove_points_outside(synthetic.sample_scene(
+        np.random.default_rng(100 + i))[0]) for i in range(2)]
+    cells_l, keys_l = zip(*(bev.aggregate_bev_cells(c) for c in clouds))
+    req = bev.pack_cells_flat(list(cells_l), list(keys_l), sum(len(c) for c in cells_l))
+    return raster(req, dev, 2).cpu().numpy()
+
+
+def build_models(dev, sighted: bool = False):
+    """(spec, folded state, path-1 model, path-2 model): complex_yolov4 @608
+    bf16 from seed-0 weights (sighted: rescaled by
+    `sighted.sighted_params_np` on the first calibration frame); path 2
+    quantized by `default_skip` after calibration on 2 synthetic frames (as
+    bench.py does), with both fused CSP stages."""
     from complex_yolov4_tpu_torch.models import quantize as qz
+    from complex_yolov4_tpu_torch.models import sighted as sighted_mod
     from complex_yolov4_tpu_torch.models import weights, zoo
     from complex_yolov4_tpu_torch.models.network import Darknet
 
     spec = zoo.get_model_spec(MODEL)
     params, state = weights.init_params_np(spec, SEED)
+    calib = calib_rasters(dev)
+    if sighted:
+        params, state = sighted_mod.sighted_params_np(spec, params, state, calib[:1],
+                                                      device=dev)
     folded = weights.fold_batchnorm(spec, params, state)
     st = weights.from_folded(spec, folded)
     path1 = Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev)
-    clouds = [bev.remove_points_outside(synthetic.sample_scene(
-        np.random.default_rng(100 + i))[0]) for i in range(2)]
-    cells_l, keys_l = zip(*(bev.aggregate_bev_cells(c) for c in clouds))
-    req = bev.pack_cells_flat(list(cells_l), list(keys_l), sum(len(c) for c in cells_l))
-    calib = raster(req, dev, 2).cpu().numpy()
     t0 = time.perf_counter()
     tree = qz.quantize_model(spec, folded, [calib], device=dev)
-    print(f"[slice] int8 PTQ: {len(tree)} convs calibrated on 2 frames in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[slice] int8 PTQ{' (sighted weights)' if sighted else ''}: {len(tree)} convs "
+          f"calibrated on 2 frames in {time.perf_counter() - t0:.1f} s")
     path2 = Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev,
                     quant=weights.from_jax_quant(spec, tree), fused_stages=True)
-    return spec, path1, path2
+    return spec, st, path1, path2
 
 
 def serve_path(label, spec, model, expected, compare_batch, dev):
@@ -1071,10 +1143,7 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
     n_boxes = spec.num_boxes(608)
     if tuple(got.shape) != (compare_batch, n_boxes, 10) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"decoded heads: shape {tuple(got.shape)} or non-finite")
-    diff = (got - ref).abs().amax(dim=(0, 1))
-    scale = ref.abs().amax(dim=(0, 1)) + 1e-6
-    rel = float((diff / scale).max())
-    prob = float(diff[6:].max())
+    rel, prob, _ = heads_err(got, ref)
     print(f"[slice] {label} decoded ({compare_batch}, {n_boxes}, 10) kernel vs plain path: "
           f"max rel err per column={rel:.3g} (tol {DECODED_REL_TOL}), "
           f"max abs err conf/cls={prob:.3g} (tol {PROB_ABS_TOL})")
@@ -1249,14 +1318,214 @@ def check_heads(label, model, batch, dev, frames: int = 2, rel_tol: float = DECO
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: non-finite decoded heads")
-    diff = (got - ref).abs().amax(dim=(0, 1))
-    rel = float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max())
-    prob = float(diff[6:].max())
+    rel, prob, _ = heads_err(got, ref)
     print(f"[eval] {label} decoded {tuple(got.shape)} kernel vs plain path: max rel err per "
           f"column={rel:.3g} (tol {rel_tol}), max abs err conf/cls={prob:.3g} "
           f"(tol {prob_tol})")
     if rel > rel_tol or prob > prob_tol:
         raise AssertionError(f"{label}: kernel path and plain path disagree")
+
+
+def heads_err(got, ref):
+    """Two decoded (B, N, 10) heads: (max |diff| per column relative to the
+    column's scale, max |diff| on conf/cls, the per-column relative list)."""
+    diff = (got.float() - ref.float()).abs().amax(dim=(0, 1))
+    cols = diff / (ref.float().abs().amax(dim=(0, 1)) + 1e-6)
+    return float(cols.max()), float(diff[6:].max()), cols.tolist()
+
+
+@contextlib.contextmanager
+def zeroed(model, layer: int):
+    """A planted fault: conv `layer`'s weights zeroed in every buffer a
+    route reads (`w`, the packed `wk`, the int8 `wq`), the fused segments
+    rebuilt from them; restored after."""
+    saved = {}
+    for name in (f"w{layer}", f"wk{layer}", f"wq{layer}"):
+        if hasattr(model, name):
+            saved[name] = getattr(model, name).clone()
+            getattr(model, name).zero_()
+    model._segments.clear()
+    try:
+        yield
+    finally:
+        for name, buf in saved.items():
+            getattr(model, name).copy_(buf)
+        model._segments.clear()
+
+
+def conv3x3_cudnn(x, w_packed, bias, *, stride: int, activation: str):
+    """The 3x3 kernel's function through cuDNN: the bf16-rounded operands
+    convolved in f32 (TF32 off), then the f32 bias and the activation, out
+    in x's dtype; `conv3x3_plain` summed in another order."""
+    import torch.nn.functional as F
+
+    from complex_yolov4_tpu_torch.models.network import no_tf32
+    from complex_yolov4_tpu_torch.ops.activations import act
+
+    c_in, c_out = x.shape[-1], w_packed.shape[1]
+    w = w_packed.float().reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    with no_tf32():
+        y = F.conv2d(x.to(torch.bfloat16).float().permute(0, 3, 1, 2), w, bias.float(),
+                     stride=stride, padding=1)
+    return act(y.permute(0, 2, 3, 1), activation).to(x.dtype)
+
+
+@contextlib.contextmanager
+def cudnn_routed(model):
+    """The floor of a sighted check: `model`'s all-plain path with the
+    routed stem and 3x3 layers through `conv3x3_cudnn` and its fused
+    segments run layer by layer by the executor (int8 convs stay plain), a
+    second correct implementation of every routed layer."""
+    from complex_yolov4_tpu_torch.ops import conv3x3, stem_conv
+
+    saved = conv3x3.conv3x3_plain, stem_conv.stem_plain, model.fused_stages
+    conv3x3.conv3x3_plain = conv3x3_cudnn
+    stem_conv.stem_plain = lambda x, w, b, *, activation: conv3x3_cudnn(
+        x, w, b, stride=1, activation=activation).to(torch.bfloat16)
+    model.fused_stages = False
+    try:
+        yield
+    finally:
+        conv3x3.conv3x3_plain, stem_conv.stem_plain, model.fused_stages = saved
+
+
+def rms_err(got, ref) -> float:
+    """The sighted checks' statistic: on decoded (B, N, 10) heads, per
+    column the RMS difference relative to the column's RMS, the largest
+    column's; on a layer's activation, the same over the whole tensor."""
+    d, r = (got.float() - ref.float()).square(), ref.float().square()
+    dims = (0, 1) if got.dim() == 3 else tuple(range(got.dim()))
+    return float((d.mean(dim=dims).sqrt() / r.mean(dim=dims).sqrt()).max())
+
+
+def share_moved(got, ref) -> float:
+    """The statistic of a sighted check that one-ulp flips of int8 steps
+    would swamp under `rms_err`: on decoded (B, N, 10) heads, per column the
+    share of elements that moved by more than half the column's RMS, the
+    largest column's; on a layer's activation, the same over the whole
+    tensor."""
+    d, r = (got.float() - ref.float()).abs(), ref.float()
+    dims = (0, 1) if got.dim() == 3 else tuple(range(got.dim()))
+    half_rms = 0.5 * r.square().mean(dim=dims, keepdim=True).sqrt()
+    return float((d > half_rms).float().mean(dim=dims).max())
+
+
+STATISTICS = {"rms_err": rms_err, "share_moved": share_moved}
+
+
+def sighted_check(label, models, blinds, img):
+    """Phase 4 (s), one entry of SIGHTED_CHECKS: the kernel path of
+    `models[path]` (sighted weights) against its all-plain path on `img`, at
+    the heads or at one layer, with the floor (`cudnn_routed`) beside it;
+    then each planted fault in the kernel path, and for a head check the
+    same fault in `blinds[path]` (seed-0 weights) against that model's own
+    head check (the largest per-column difference, `heads_err`)."""
+    path, stop, stat, tol, faults, margin = SIGHTED_CHECKS[label]
+    model, (blind, blind_tol), measure = models[path], blinds[path], STATISTICS[stat]
+    with torch.inference_mode():
+        ref = model(img, kernels=False, stop_after=stop)
+        got = model(img, kernels=True, stop_after=stop)
+        with cudnn_routed(model):
+            alt = model(img, kernels=False, stop_after=stop)
+        blind_ref = blind(img, kernels=False) if stop is None else None
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"sighted {label}: non-finite output")
+    err, floor = measure(got, ref), measure(alt, ref)
+    where = "decoded heads" if stop is None else f"layer {stop}'s output"
+    largest = (f"; largest per-column difference {heads_err(got, ref)[0]:.4g} (floor "
+               f"{heads_err(alt, ref)[0]:.4g})" if stop is None else "")
+    print(f"[sighted] {label}: {where} {tuple(got.shape)} kernel vs plain path: {stat}="
+          f"{err:.4g} (tol {tol}); floor (plain path vs the routed layers on cuDNN, fused "
+          f"segments layer by layer) {floor:.4g}{largest}")
+    if err > tol:
+        raise AssertionError(f"sighted {label}: kernel path and plain path disagree")
+    for fault in faults:
+        layer = FAULT_LAYERS[fault]
+        with zeroed(model, layer), torch.inference_mode():
+            move = measure(model(img, kernels=True, stop_after=stop), ref) / tol
+        text = (f"[sighted] {label} planted fault {fault} (layer {layer}'s weights zeroed in the "
+                f"kernel path): the sighted check moves {move:.4g}x its tolerance (need >= "
+                f"{margin:g})")
+        if stop is None:
+            with zeroed(blind, layer), torch.inference_mode():
+                rel, prob, _ = heads_err(blind(img, kernels=True), blind_ref)
+            text += (f", the seed-0 head check {max(rel / blind_tol[0], prob / blind_tol[1]):.4g}x "
+                     f"its own")
+        print(text)
+        if move < margin:
+            raise AssertionError(f"sighted {label}: planted fault {fault} not seen")
+
+
+def f32_route(model, blind, img):
+    """Phase 4 (s): the default f32 forward of `model` (sighted weights; no
+    route: every conv cuDNN f32, TF32 off) against the CPU's f32 forward of
+    the same model, and the 3x3 route (`conv3x3.F32_ENABLED`) against the
+    default, per head column; the seed-0 `blind` model's route move
+    beside it."""
+    from complex_yolov4_tpu_torch.ops import conv3x3
+
+    fns = counters()
+    moves = {}
+    for label, m in (("sighted", model), ("seed-0", blind)):
+        n0 = fns["conv3x3_fused"].launches
+        with torch.inference_mode():
+            default = m(img)
+            n1 = fns["conv3x3_fused"].launches
+            conv3x3.F32_ENABLED = True
+            try:
+                routed = m(img)
+            finally:
+                conv3x3.F32_ENABLED = False
+        torch.cuda.synchronize()
+        if (n1 - n0, fns["conv3x3_fused"].launches - n1) != (0, 5):
+            raise AssertionError(f"f32 route {label}: 3x3 launches {n1 - n0}, "
+                                 f"{fns['conv3x3_fused'].launches - n1} != 0, 5")
+        moves[label] = heads_err(routed, default)
+        print(f"[sighted] f32 3x3 route (layers 1, 6, 11, 16, 19 on cyv4_conv3x3_f32) vs the "
+              f"default all-cuDNN f32 forward, {label} weights: max rel err per column="
+              f"{moves[label][0]:.4g}, conf/cls {moves[label][1]:.4g}; per column "
+              + " ".join(f"{c:.3g}" for c in moves[label][2]))
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        default = model(img)
+        on_cpu = model.replicate(cpu)(img.to(cpu))
+    rel, prob, cols = heads_err(default.to(cpu), on_cpu)
+    print(f"[sighted] f32 default forward on the card vs the CPU's f32 forward (all f32), "
+          f"sighted weights: max rel err per column={rel:.4g}, conf/cls {prob:.4g} (tol "
+          f"{F32_ROUTE_TOL}); per column " + " ".join(f"{c:.3g}" for c in cols)
+          + f" ({time.perf_counter() - t0:.1f} s with the CPU forward)")
+    if rel > F32_ROUTE_TOL or prob > F32_ROUTE_TOL:
+        raise AssertionError("the default f32 forward is off the all-f32 forward")
+
+
+def phase_sighted(dev, blind_state, path1, path2):
+    """Phase 4 (s): the checks of SIGHTED_CHECKS on the first 2 frames of
+    request 0 and the f32 route, on sighted weights
+    (`build_models(sighted=True)`); the seed-0 `path1`, `path2` and an f32
+    model of `blind_state` beside them."""
+    from complex_yolov4_tpu_torch.models.network import Darknet
+    from complex_yolov4_tpu_torch.ops import conv3x3
+
+    t0 = time.perf_counter()
+    spec, state, s1, s2 = build_models(dev, sighted=True)
+    models = {"path 1": s1, "path 2": s2,
+              "f32": Darknet(spec, state, compute_dtype=torch.float32, device=dev)}
+    del state
+    bf16_tol, f32_tol = (DECODED_REL_TOL, PROB_ABS_TOL), (F32_HEADS_TOL, F32_HEADS_TOL)
+    blinds = {"path 1": (path1, bf16_tol), "path 2": (path2, bf16_tol),
+              "f32": (Darknet(spec, blind_state, compute_dtype=torch.float32, device=dev),
+                      f32_tol)}
+    img = raster(host_coo(make_scenes(0)), dev, BATCH)[:2].permute(0, 3, 1, 2)
+    print(f"[sighted] models built in {time.perf_counter() - t0:.1f} s")
+    for label, (path, *_) in SIGHTED_CHECKS.items():
+        conv3x3.F32_ENABLED = path == "f32"
+        try:
+            sighted_check(label, models, blinds, img)
+        finally:
+            conv3x3.F32_ENABLED = False
+    f32_route(models["f32"], blinds["f32"][0], img)
 
 
 def eval_loader(root, flags):
@@ -1513,7 +1782,8 @@ def phase_train(dev, tmp, root):
           + " ".join(f"{x * 1e3:.1f}" for x in timings["step"])
           + f"; f32 validation mAP={timings['mAP'][0]:.4f} in {timings['val'][0]:.2f} s; "
           f"whole run {wall:.1f} s; launches {got} (validation: {per_val_batch} f32 3x3 "
-          f"launches per batch from the f32 routes {spec_routes}, {val_batches} batches)")
+          f"launches per batch from the default f32 routes {spec_routes}, {val_batches} "
+          f"batches)")
     if (n_steps != TRAIN_FRAMES // TRAIN_BATCH or state.global_step != n_steps
             or got != want):
         raise AssertionError(f"train run: {n_steps} steps, launches {got} != {want}")
@@ -1536,7 +1806,7 @@ def phase_train(dev, tmp, root):
           f"model.routes(608) {per_batch}; device_ms/batch "
           + " ".join(f"{x * 1e3:.2f}" for x in cold["infer"])
           + f"; eval frames/s (cold, every batch)={TRAIN_VAL_FRAMES / cold['total'][0]:.2f}")
-    if (got != want or model.compute_dtype != torch.float32 or per_batch["stem_conv3x3"]
+    if (got != want or model.compute_dtype != torch.float32 or any(per_batch.values())
             or n_batches != TRAIN_VAL_FRAMES // BATCH):
         raise AssertionError(f"f32 eval of the checkpoint: {got} != {want}")
     ref = state.model.to_serving(dev, torch.float32)
@@ -1545,19 +1815,49 @@ def phase_train(dev, tmp, root):
             raise AssertionError(f"checkpoint weights differ from the trained model: {name}")
     del ref
     launches["eval f32 checkpoint"] = got
-    first, _ = eval_loader(root, ())
-    check_heads("f32 checkpoint", model, next(iter(first)), dev, rel_tol=F32_HEADS_TOL,
-                prob_tol=F32_HEADS_TOL)
-    warm = warm_pass(model, root, eval_argv, ())
-    print(f"[train] f32 eval warm pass: device_ms/batch "
-          + " ".join(f"{x * 1e3:.2f}" for x in warm["infer"])
-          + " match_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["match"])
-          + " wait_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["load"])
-          + f"; eval frames/s over batches 2-{len(warm['infer'])} "
-          f"({TRAIN_VAL_FRAMES - BATCH} frames, the first batch left out)="
-          f"{warm_rate(warm, BATCH):.2f}")
+
+    def warm_f32(label, model):
+        warm = warm_pass(model, root, eval_argv, ())
+        print(f"[train] f32 eval warm pass{label}: device_ms/batch "
+              + " ".join(f"{x * 1e3:.2f}" for x in warm["infer"])
+              + " match_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["match"])
+              + " wait_ms/batch " + " ".join(f"{x * 1e3:.2f}" for x in warm["load"])
+              + f"; eval frames/s over batches 2-{len(warm['infer'])} "
+              f"({TRAIN_VAL_FRAMES - BATCH} frames, the first batch left out)="
+              f"{warm_rate(warm, BATCH):.2f}")
+
+    warm_f32("", model)
     del model
     lap("f32 eval of the checkpoint")
+
+    # the same with the f32 3x3 route switched on (the reference's
+    # `pallas_conv.ENABLED`): the f32 kernel's launches, the heads against
+    # the all-plain path, and the mAP and frames/s beside the default's
+    from complex_yolov4_tpu_torch.ops import conv3x3
+
+    for fn in fns.values():
+        fn.launches = 0
+    conv3x3.F32_ENABLED = True
+    try:
+        routed = {}
+        out_r, model = evaluate.main(eval_argv, timings=routed)
+        got = {k: fn.launches for k, fn in fns.items()}
+        per_batch, want = expected_launches(model, len(routed["infer"]), 0)
+        print(f"[train] checkpoint in cli.evaluate, f32 with the 3x3 route "
+              f"(conv3x3.F32_ENABLED): mAP={float(out_r['mAP']):.4f} (default "
+              f"{float(out['mAP']):.4f}, difference {float(out_r['mAP']) - float(out['mAP']):.4g}) "
+              f"launches {got}, per batch from model.routes(608) {per_batch}")
+        if got != want or per_batch["conv3x3_fused"] != 5 or per_batch["stem_conv3x3"]:
+            raise AssertionError(f"f32 eval with the 3x3 route: {got} != {want}")
+        launches["eval f32 checkpoint, 3x3 route on"] = got
+        first, _ = eval_loader(root, ())
+        check_heads("f32 checkpoint (3x3 route on)", model, next(iter(first)), dev,
+                    rel_tol=F32_HEADS_TOL, prob_tol=F32_HEADS_TOL)
+        warm_f32(" (3x3 route on)", model)
+    finally:
+        conv3x3.F32_ENABLED = False
+    del model
+    lap("f32 eval of the checkpoint with the 3x3 route")
 
     # the checkpoint served int8 in f32 compute (calibrated in f32, the
     # int8 convs writing f32); the kernel quantizes each f32 input, so the
@@ -2678,7 +2978,7 @@ def main() -> None:
         lap("phase 3 (fused stage)")
         records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
         lap("phase 3 (int8 conv)")
-        spec, path1, path2 = build_models(dev)
+        spec, state, path1, path2 = build_models(dev)
         l1 = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
         l8 = phase_ddp_serve(path1, dev)
         layerwise_segments(path1, dev)
@@ -2686,9 +2986,11 @@ def main() -> None:
         if "--split" in sys.argv[1:]:
             phase_split("path1", path1, dev)
             phase_split("path2", path2, dev)
-        del path1, path2
+        phase_sighted(dev, state, path1, path2)
+        del state, path1, path2
         torch.cuda.empty_cache()
-        lap("phase 4 (slice; phase 7 c: served with numpy and native COO; phase 8 c)")
+        lap("phase 4 (slice; phase 7 c: served with numpy and native COO; phase 8 c; s: "
+            "sighted checks)")
         runs = {"serve path 1": l1, "serve path 2": l2, "serve path 1 on 2 replicas": l8,
                 **{f"eval {k}": v for k, v in phase_evaluate(dev, roots["eval"]).items()}}
         lap("phase 5 (evaluate)")

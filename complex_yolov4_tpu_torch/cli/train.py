@@ -9,7 +9,7 @@ epoch train on the device raster of the loader's deferred batches
 host-rastered images; `parallel.device_prefetch` copies each batch to the
 device ahead of its step), read the losses once per print window,
 evaluate the validation mAP in f32 on points through the serving `Darknet`
-(the 3x3 kernel's f32 instance on CUDA), and save an async checkpoint.
+(all f32, as JAX's shipped executor), and save an async checkpoint.
 Ctrl-C exits 130 after the in-flight save is joined.
 
 Data parallel: one process per device (`parallel`). ``--num_processes N

@@ -13,7 +13,8 @@ runs: a bf16 `Darknet` serves path 1 (stem and 3x3 kernels, cuDNN
 elsewhere); a `Darknet(quant=..., fused_stages=True)` serves path 2, the
 JAX package's `FUSED_STAGE=1 bench.py` configuration (int8 PTQ convs on
 the int8 kernel, the CSP stages on the fused-stage kernel); an f32 model
-serves in f32 (on CUDA the 3x3 kernel's f32 instance).
+serves in f32 (cuDNN in f32; the 3x3 kernel's f32 instance on CUDA only
+with `conv3x3.F32_ENABLED`).
 
 Several devices (`devices`, the JAX package's `mesh`): the model is
 replicated once on each, the batch is split over them in order (a batch

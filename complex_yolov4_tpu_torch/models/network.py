@@ -27,10 +27,12 @@ Kernel routing, mirroring the JAX executor, in this order of precedence:
   f32 raster (layer 0), in bf16 compute only: the JAX executor takes its
   stem only then (`network.py:502-513`), so f32 runs layer 0 on cuDNN;
 - `ops.conv3x3` takes a 3x3 padded conv at stride 1 or 2 with C_in <= 128,
-  C_out <= 128 and W_out >= 128: in bf16 on any device, in f32 on CUDA
-  only (its f32 instance takes and gives f32). The JAX executor runs its
-  Pallas conv only on an accelerator (`_use_pallas_default`), so an f32
-  model on the CPU convolves in full f32, as XLA does there.
+  C_out <= 128 and W_out >= 128: in bf16 on any device; in f32 on CUDA
+  only and only while `conv3x3.F32_ENABLED` is True (its f32 instance
+  takes and gives f32, with bf16 products). The JAX executor runs its
+  Pallas conv only on an accelerator (`_use_pallas_default`) and only
+  while `pallas_conv.ENABLED` is (False as shipped), so an f32 model
+  convolves in full f32 by default, as XLA does.
 The stem, 3x3 and fused-stage kernels are reached only through their
 `torch.library` custom ops (``cyv4::stem_conv3x3``, ``cyv4::conv3x3``,
 ``cyv4::fused_stage``, called by the wrappers), one path for eager calls
@@ -40,10 +42,10 @@ int8 runs in either compute dtype (its f32 output mode, `network.py:496`);
 fused stages in bf16 only. An f32 forward on CUDA runs with TF32 off
 (`no_tf32`), so that cuDNN's convs compute in f32 as XLA's do.
 At 608 that routes complex_yolov4's layer 0 to the stem kernel (bf16) and
-layers 1, 6, 11, 16 and 19 to the 3x3 kernel; with fused stages, layers
-2-10 and 12-23 go to two fused-stage launches and only layers 1 and 11 stay on the 3x3
-kernel; with int8 by `quantize.default_skip`, 68 convs go to the int8
-kernel.
+layers 1, 6, 11, 16 and 19 to the 3x3 kernel (bf16; f32 with the switch
+on); with fused stages, layers 2-10 and 12-23 go to two fused-stage
+launches and only layers 1 and 11 stay on the 3x3 kernel; with int8 by
+`quantize.default_skip`, 68 convs go to the int8 kernel.
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ def kernel_routes(spec: NetSpec, img_size: int,
                   compute_dtype: torch.dtype = torch.bfloat16) -> Dict[int, str]:
     """{layer index: "stem" | "conv3x3"} for the convs the kernels take on a
     square `img_size` input in `compute_dtype` (pure Python, no compute);
-    f32 has no stem route."""
+    f32 has no stem route, and a 3x3 route only while
+    `conv3x3.F32_ENABLED` is True."""
     chans = (spec.in_channels,) + spec.out_channels()
     strides = spec.out_strides()
     routes: Dict[int, str] = {}
@@ -105,8 +108,8 @@ def kernel_routes(spec: NetSpec, img_size: int,
         if i == 0 and stem_mod.shape_ok(chans[0], layer.filters, 3, layer.stride):
             if compute_dtype == torch.bfloat16:
                 routes[i] = "stem"  # only layer 0 reads the f32 raster
-        elif conv3x3_mod.shape_ok(size_in, size_in, chans[i], layer.filters, 3,
-                                  layer.stride):
+        elif (conv3x3_mod.shape_ok(size_in, size_in, chans[i], layer.filters, 3, layer.stride)
+              and (compute_dtype == torch.bfloat16 or conv3x3_mod.F32_ENABLED)):
             routes[i] = "conv3x3"
     return routes
 
@@ -166,8 +169,9 @@ class Darknet(nn.Module):
       spec: the (unfolded) layer IR; BN is already folded into `state`.
       state: ``{"layer{i}.weight": OIHW, "layer{i}.bias": (C_out,)}`` from
         `weights.from_jax_params`.
-      compute_dtype: torch.bfloat16 or torch.float32 (the 3x3 kernel's f32
-        instance, cuDNN in f32 with TF32 off, the int8 kernel's f32 output).
+      compute_dtype: torch.bfloat16 or torch.float32 (cuDNN in f32 with
+        TF32 off, the int8 kernel's f32 output; the 3x3 kernel's f32
+        instance only with `conv3x3.F32_ENABLED`).
       device: where the weights live; inputs must be on it too.
       quant: int8 state from `weights.from_jax_quant`: the convs it holds
         run on the int8 kernel.
@@ -280,9 +284,9 @@ class Darknet(nn.Module):
         """Kernel routes of a square `img_size` input: {layer index: "stem" |
         "conv3x3" | "int8" | "fused_stage s-e"}, every layer of a fused
         segment s..e included (no stem in f32 compute, and no 3x3 kernel in
-        f32 off CUDA); fused=False: as when the segments are off for a call
-        (calibration capture)."""
-        key = (img_size, fused)
+        f32 off CUDA or with `conv3x3.F32_ENABLED` off); fused=False: as
+        when the segments are off for a call (calibration capture)."""
+        key = (img_size, fused, conv3x3_mod.F32_ENABLED)
         if key not in self._routes:
             f32_host = self.compute_dtype == torch.float32 and self.device.type != "cuda"
             routes = {} if f32_host else {

@@ -17,6 +17,11 @@ the bf16-rounded operands), which the CPU tests hold against the Pallas
 kernel; its fake implementation checks the operands and gives the output's
 shape and dtype, and builds nothing. `conv3x3_fused` is the wrapper that
 calls the op.
+
+An f32 network routes its 3x3 layers here only while `F32_ENABLED` is
+True, as the JAX executor reaches `pallas_conv` only while its `ENABLED`
+is (False as shipped): by default f32 compute convolves every layer in
+full f32, as XLA does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,11 @@ import torch.nn.functional as F
 
 from . import _build
 from .activations import ACT_CODES, act
+
+# The switch of the f32 route, mirroring `pallas_conv.ENABLED`: the f32
+# contract rounds x and w to bf16 for the products, which moves an f32
+# network's heads off an all-f32 forward (PERF.md §6).
+F32_ENABLED = False
 
 
 def channels_ok(c_in: int, c_out: int, size: int, stride: int) -> bool:

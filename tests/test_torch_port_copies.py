@@ -64,6 +64,7 @@ from complex_yolov4_tpu_torch.utils import logger as tlog
 from complex_yolov4_tpu_torch.utils import meters as tmeters
 from complex_yolov4_tpu_torch.utils import viewer_html as tviewer
 from complex_yolov4_tpu_torch.utils import visualization as tviz
+from tests._torch_port_util import capped_threads, child_env  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -345,12 +346,18 @@ def test_kernel_routes_at_608():
                       16: "conv3x3", 19: "conv3x3"}
 
 
-def test_kernel_routes_at_608_f32():
-    """f32 compute: the 3x3 kernel's layers, no stem (the JAX executor takes
-    its stem in bf16 only)."""
-    spec = tzoo.get_model_spec("complex_yolov4")
+def test_kernel_routes_at_608_f32(monkeypatch):
+    """f32 compute: no route by default (the JAX executor's
+    `pallas_conv.ENABLED` is False as shipped); with `conv3x3.F32_ENABLED`
+    the 3x3 kernel's layers, and never a stem (the JAX executor takes its
+    stem in bf16 only)."""
     import torch
 
+    from complex_yolov4_tpu_torch.ops import conv3x3
+
+    spec = tzoo.get_model_spec("complex_yolov4")
+    assert kernel_routes(spec, 608, torch.float32) == {}
+    monkeypatch.setattr(conv3x3, "F32_ENABLED", True)
     assert kernel_routes(spec, 608, torch.float32) == {
         1: "conv3x3", 6: "conv3x3", 11: "conv3x3", 16: "conv3x3", 19: "conv3x3"}
 
@@ -374,7 +381,7 @@ def test_port_imports_no_jax():
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, env=child_env())
     assert out.returncode == 0, out.stderr
 
 

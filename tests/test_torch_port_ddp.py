@@ -26,6 +26,7 @@ under DDP's `no_sync`), `remat`, and unequal object counts per rank (rank
 
 import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -40,18 +41,29 @@ from complex_yolov4_tpu_torch import train as T
 from complex_yolov4_tpu_torch.models import weights, zoo
 
 from . import _torch_port_ddp_worker as W
-from ._torch_port_util import free_port, run_workers
+from ._torch_port_util import (capped_threads, free_port, start_workers,  # noqa: F401
+                               wait_workers)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Every case's results of the two gloo ranks: {case: [rank 0, rank 1]}."""
+    """Every case's results of the two gloo ranks: {case: [rank 0, rank 1]}.
+    While the ranks run, this process runs every case's JAX mesh step
+    (`_jax_mesh` keeps them)."""
     out = str(tmp_path_factory.mktemp("ddp"))
     port = free_port()
-    run_workers([os.path.join(_REPO, "tests", "_torch_port_ddp_worker.py")],
-                lambda r: [str(port), str(r), "2", out])
+    procs = start_workers([os.path.join(_REPO, "tests", "_torch_port_ddp_worker.py")],
+                          lambda r: [str(port), str(r), "2", out])
+    try:
+        # one thread a configuration: XLA compiles without the GIL
+        with ThreadPoolExecutor(len(_CONFIGS)) as pool:
+            list(pool.map(_compile, _CONFIGS))
+        for case in W.CASES:
+            _jax_mesh(case)
+    finally:
+        wait_workers(procs)
     return {case: [torch.load(os.path.join(out, f"{case}_rank{r}.pt"), weights_only=False)
                    for r in range(2)]
             for case in W.CASES}
@@ -82,15 +94,33 @@ def _jax_step(use_giou, subdivisions, remat):
     return mesh, tx, step
 
 
+# the (use_giou, subdivisions, remat) configurations of the cases
+_CONFIGS = sorted({v[:3] for v in W.CASES.values()})
+
+
+def _jax_state(mesh, tx):
+    spec = zoo.get_model_spec(W.NAME, width=W.SIZE, height=W.SIZE)
+    params, bn_state = weights.init_params_np(spec, 0)
+    jp = jax.tree.map(jnp.asarray, params)
+    return replicate_tree(mesh, JT.TrainState.create(jp, jax.tree.map(jnp.asarray, bn_state),
+                                                     tx))
+
+
+def _compile(config):
+    """Compile one configuration's JAX mesh step ahead of `_jax_mesh` (the
+    jitted step then finds it compiled)."""
+    mesh, tx, step = _jax_step(*config)
+    case = next(c for c, v in W.CASES.items() if v[:3] == config)
+    step.lower(_jax_state(mesh, tx), shard_batch(mesh, W.global_batches(case)[0]),
+               jnp.float32(W.LR)).compile()
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_mesh(case):
     """(losses, params, bn_state) of the JAX step on a 2-device mesh."""
     use_giou, subdivisions, remat, _ = W.CASES[case]
-    spec = zoo.get_model_spec(W.NAME, width=W.SIZE, height=W.SIZE)
-    params, bn_state = weights.init_params_np(spec, 0)
     mesh, tx, step = _jax_step(use_giou, subdivisions, remat)
-    jp = jax.tree.map(jnp.asarray, params)
-    state = replicate_tree(mesh, JT.TrainState.create(jp, jax.tree.map(jnp.asarray, bn_state),
-                                                      tx))
+    state = _jax_state(mesh, tx)
     losses = []
     for b in W.global_batches(case):
         state, m = step(state, shard_batch(mesh, b), jnp.float32(W.LR))

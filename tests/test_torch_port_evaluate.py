@@ -31,7 +31,7 @@ from complex_yolov4_tpu_torch.evaluation import metrics as TM
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 
-from tests._torch_port_util import gap_threshold
+from tests._torch_port_util import capped_threads, gap_threshold  # noqa: F401
 
 NAME = "complex_yolov4_tiny"
 SIZE = 160

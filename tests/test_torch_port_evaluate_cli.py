@@ -32,7 +32,7 @@ from complex_yolov4_tpu_torch.data.loader import create_val_loader
 from complex_yolov4_tpu_torch.models import weights, weights_io, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 
-from tests._torch_port_util import gap_threshold
+from tests._torch_port_util import capped_threads, gap_threshold  # noqa: F401
 
 NAME = "complex_yolov4_tiny"
 
@@ -105,14 +105,18 @@ def test_int8_f32_raises(root, capsys):
                 fused_stages=True)
 
 
-def test_f32_on_cuda_raises():
+def test_f32_on_cuda_raises(monkeypatch):
     """An f32 network on a CUDA device is no longer refused by the port: its
-    routes at 608 are the 3x3 kernel's layers, with no stem, and its forward
-    runs with TF32 off (`precision_scope`, restored after). Without a card,
-    only torch's placement of the buffers on the absent device raises."""
+    routes at 608 are none by default and the 3x3 kernel's layers with
+    `conv3x3.F32_ENABLED`, never a stem, and its forward runs with TF32 off
+    (`precision_scope`, restored after). Without a card, only torch's
+    placement of the buffers on the absent device raises."""
     from complex_yolov4_tpu_torch.models.network import kernel_routes, precision_scope
+    from complex_yolov4_tpu_torch.ops import conv3x3
 
     spec = zoo.get_model_spec(NAME)
+    assert kernel_routes(spec, 608, torch.float32) == {}
+    monkeypatch.setattr(conv3x3, "F32_ENABLED", True)
     assert set(kernel_routes(spec, 608, torch.float32).values()) == {"conv3x3"}
     state = weights.from_folded(spec, weights.fold_batchnorm(
         spec, *weights.init_params_np(spec, 0)))

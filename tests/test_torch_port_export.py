@@ -36,6 +36,7 @@ from complex_yolov4_tpu_torch.ops import conv3x3 as c3
 from complex_yolov4_tpu_torch.ops import fused_stage as fs
 from complex_yolov4_tpu_torch.ops import nms as tnms
 from complex_yolov4_tpu_torch.ops import stem_conv as st
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TINY = "complex_yolov4_tiny"

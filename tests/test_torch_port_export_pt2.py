@@ -41,7 +41,7 @@ from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.spec import ConvSpec, NetSpec, YoloSpec
 from complex_yolov4_tpu_torch.ops import fused_stage as fs
 
-from tests._torch_port_util import gap_threshold
+from tests._torch_port_util import capped_threads, child_env, gap_threshold  # noqa: F401
 
 CPU = torch.device("cpu")
 TINY = "complex_yolov4_tiny"
@@ -171,7 +171,7 @@ def test_pt2_fused_stage_equals_eager_and_loads_fresh(tmp_path, monkeypatch):
             f"torch.save((d, m), {str(tmp_path / 'out.pt')!r})\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=180,
-                         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
+                         env=child_env())
     assert out.returncode == 0, out.stderr[-3000:]
     d, m = torch.load(tmp_path / "out.pt")
     assert torch.equal(d, want[0]) and torch.equal(m, want[1])

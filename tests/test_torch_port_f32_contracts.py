@@ -32,7 +32,7 @@ from complex_yolov4_tpu_torch.models import quantize as tqz
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 from complex_yolov4_tpu_torch.ops import int8_conv as tint8
-from tests._torch_port_util import image, nchw, rel_err
+from tests._torch_port_util import capped_threads, image, nchw, rel_err  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -30,6 +30,7 @@ from complex_yolov4_tpu.models.zoo import MODEL_ZOO
 from complex_yolov4_tpu.ops import fused_stage as jfs
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.ops import fused_stage as tfs
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 SEG_CASES = [("complex_yolov4", (2, 10)), ("complex_yolov4", (12, 23)),
              ("complex_yolov4_tiny", (2, 8)), ("complex_yolov3", (2, 4)),

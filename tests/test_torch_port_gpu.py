@@ -22,6 +22,7 @@ import torch
 
 from complex_yolov4_tpu_torch.ops import conv3x3 as conv_mod
 from complex_yolov4_tpu_torch.ops import stem_conv as stem_mod
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 
@@ -150,14 +151,15 @@ def test_conv3x3_f32_kernel_matches_plain(c_in, c_out, stride, act, hw, batch, f
 
 
 def test_f32_forward_runs_without_tf32(monkeypatch):
-    """An f32 Darknet on the card: its cuDNN convs see TF32 off (the
-    caller's setting restored after), and its 3x3 layers launch the f32
-    kernel."""
+    """An f32 Darknet on the card with the f32 route switched on
+    (`conv3x3.F32_ENABLED`): its cuDNN convs see TF32 off (the caller's
+    setting restored after), and its 3x3 layers launch the f32 kernel."""
     import torch.nn.functional as F
 
     from complex_yolov4_tpu_torch.models import network, weights, zoo
 
     dev = _cuda()
+    monkeypatch.setattr(conv_mod, "F32_ENABLED", True)
     spec = zoo.get_model_spec("complex_yolov4")
     model = network.Darknet(spec, weights.from_folded(spec, weights.fold_batchnorm(
         spec, *weights.init_params_np(spec, 0))), compute_dtype=torch.float32, device=dev)
@@ -189,6 +191,44 @@ def test_f32_forward_runs_without_tf32(monkeypatch):
     diff = (out - ref).abs().amax(dim=(0, 1))
     assert float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max()) <= 1e-3
     assert float(diff[6:].max()) <= 1e-3
+
+
+def test_f32_default_forward_is_all_f32_sighted(monkeypatch):
+    """complex_yolov4 at 608 on sighted weights (`sighted_params_np`: the
+    input reaches the heads), f32: the default forward on the card (no
+    kernel; every conv cuDNN f32, TF32 off) against the CPU's forward of the
+    same model (all f32) within 1e-4 per column of the column's scale and
+    on conf/cls. The 3x3 route's bf16 products (`conv3x3.F32_ENABLED`) move
+    the same heads further than that, which is why the route is off by
+    default."""
+    from complex_yolov4_tpu_torch.models import network, sighted, weights, zoo
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4")
+    rng = np.random.default_rng(0)
+    params, state = sighted.sighted_params_np(
+        spec, *weights.init_params_np(spec, 0),
+        rng.uniform(0, 1, (1, 608, 608, 3)).astype(np.float32), device=dev)
+    model = network.Darknet(spec, weights.from_jax_params(spec, params, state),
+                            compute_dtype=torch.float32, device=dev)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 3, 608, 608)).astype(np.float32))
+    n0 = conv_mod.conv3x3_fused.launches
+    with torch.inference_mode():
+        out = model(x.to(dev)).cpu()
+        ref = model.replicate(torch.device("cpu"))(x)
+    assert conv_mod.conv3x3_fused.launches == n0
+
+    def errs(got):
+        diff = (got - ref).abs().amax(dim=(0, 1))
+        return float((diff / (ref.abs().amax(dim=(0, 1)) + 1e-6)).max()), float(diff[6:].max())
+
+    rel, prob = errs(out)
+    assert rel <= 1e-4 and prob <= 1e-4, (rel, prob)
+    monkeypatch.setattr(conv_mod, "F32_ENABLED", True)
+    with torch.inference_mode():
+        routed = model(x.to(dev)).cpu()
+    assert conv_mod.conv3x3_fused.launches == n0 + 5
+    assert max(errs(routed)) > 1e-4
 
 
 def test_f32_train_step_runs_without_tf32(monkeypatch):
@@ -452,21 +492,27 @@ def test_evaluate_cli_on_card(flags, tmp_path, capsys):
     assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
 
 
-def test_evaluate_cli_f32_default_on_card(tmp_path, capsys):
+def test_evaluate_cli_f32_default_on_card(tmp_path, capsys, monkeypatch):
     """The eval CLI with no flags (the JAX CLI's default float32) on the
-    card: the 3x3 layers launch the f32 kernel once per batch each, no
-    stem, and the report prints."""
+    card: no kernel launches (every conv cuDNN f32, as JAX's shipped
+    executor) and the report prints; with `conv3x3.F32_ENABLED` the 3x3
+    layers launch the f32 kernel once per batch each, and still no stem."""
     from complex_yolov4_tpu_torch.cli import evaluate
     from complex_yolov4_tpu_torch.data import synthetic
 
     _cuda()
     root = synthetic.generate_kitti_dataset(str(tmp_path / "kitti"), num_train=0, num_val=4,
                                             num_test=0, seed=0)
+    argv = ["--dataset_dir", root, "--model", "complex_yolov4_tiny", "--batch_size", "2"]
     conv_mod.conv3x3_fused.launches = stem_mod.conv3x3_stem.launches = 0
-    out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
-                                "--batch_size", "2"])
+    out, model = evaluate.main(argv)
+    assert model.compute_dtype == torch.float32 and model.routes(608) == {}
+    assert conv_mod.conv3x3_fused.launches == stem_mod.conv3x3_stem.launches == 0
+    assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
+    monkeypatch.setattr(conv_mod, "F32_ENABLED", True)
+    out, model = evaluate.main(argv)
     routes = list(model.routes(608).values())
-    assert model.compute_dtype == torch.float32 and "stem" not in routes
+    assert "stem" not in routes
     assert conv_mod.conv3x3_fused.launches == 2 * routes.count("conv3x3") > 0
     assert stem_mod.conv3x3_stem.launches == 0
     assert f"mAP: {float(out['mAP']):.4f}" in capsys.readouterr().out
@@ -474,8 +520,8 @@ def test_evaluate_cli_f32_default_on_card(tmp_path, capsys):
 
 def test_train_cli_on_card(tmp_path):
     """The train CLI on its default device: complex_yolov4_tiny, bf16, two
-    micro-batches of 2 into one optimizer step, f32 validation through the
-    f32 3x3 kernel, a checkpoint that the eval CLI loads."""
+    micro-batches of 2 into one optimizer step, f32 validation (all f32: no
+    kernel launch), a checkpoint that the eval CLI loads."""
     import os
 
     from complex_yolov4_tpu_torch.cli import evaluate, train
@@ -491,7 +537,7 @@ def test_train_cli_on_card(tmp_path):
                         "--batch_size", "2", "--subdivisions", "2", "--num_epochs", "1",
                         "--working_dir", wd, "--print_freq", "1"], timings=timings)
     assert state.global_step == 2 and state.device.type == "cuda"
-    assert conv_mod.conv3x3_fused.launches > 0  # validation only: training runs no kernel
+    assert conv_mod.conv3x3_fused.launches == 0  # training and f32 validation run no kernel
     ckpt = os.path.join(wd, "checkpoints", "complexer_yolo", "epoch_1.ckpt")
     out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
                                 "--batch_size", "2", "--pretrained_path", ckpt])

@@ -17,6 +17,7 @@ import torch
 from complex_yolov4_tpu.ops import pallas_conv, stem_conv
 from complex_yolov4_tpu_torch.ops import conv3x3 as tconv
 from complex_yolov4_tpu_torch.ops import stem_conv as tstem
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 def _torch_operands(x, w, bias, x_dtype):

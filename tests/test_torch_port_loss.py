@@ -41,6 +41,7 @@ from complex_yolov4_tpu_torch.models import zoo
 from complex_yolov4_tpu_torch.models.yolo_head import decode_head_raw
 from complex_yolov4_tpu_torch.ops import conv3x3 as tconv
 from complex_yolov4_tpu_torch.ops import rotated_boxes as trb
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 NAME = "complex_yolov4_tiny"
 

@@ -16,6 +16,7 @@ from complex_yolov4_tpu.evaluation import metrics as JM
 from complex_yolov4_tpu.ops import rotated_boxes as jrb
 from complex_yolov4_tpu_torch.evaluation import metrics as TM
 from complex_yolov4_tpu_torch.ops import rotated_boxes as trb
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 IOU_TOL = 1e-5  # f32 geometry: two orders of summation of the same shoelace
 

@@ -31,6 +31,7 @@ from complex_yolov4_tpu_torch.data import loader as tloader
 from complex_yolov4_tpu_torch.data import synthetic
 from complex_yolov4_tpu_torch.data import transforms as ttf
 from complex_yolov4_tpu_torch.data.dataset import KittiDataset as TDataset
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 AUG = dict(hflip_prob=0.5, cutout_prob=0.7, cutout_nholes=1, cutout_ratio=0.3,
            cutout_fill_value=0.25)

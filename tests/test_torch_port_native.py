@@ -31,6 +31,7 @@ from complex_yolov4_tpu_torch.data.dataset import KittiDataset
 from complex_yolov4_tpu_torch.data.loader import resize_linear
 from complex_yolov4_tpu_torch.data.transforms import (default_aug_transforms,
                                                       default_lidar_transforms)
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from complex_yolov4_tpu.models import network as jnet
 from complex_yolov4_tpu.ops import pallas_conv
-from tests._torch_port_util import image, nchw, net_pair, rel_err
+from tests._torch_port_util import capped_threads, image, nchw, net_pair, rel_err  # noqa: F401
 
 
 @pytest.mark.parametrize("size,stop_after", [(192, 0), (256, 6)])

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from complex_yolov4_tpu.models import network as jnet
-from tests._torch_port_util import image, nchw, net_pair, rel_err
+from tests._torch_port_util import capped_threads, image, nchw, net_pair, rel_err  # noqa: F401
 
 
 @pytest.mark.parametrize("name,size", [("complex_yolov4_tiny", 128), ("complex_yolov4", 96)])

@@ -17,6 +17,7 @@ from complex_yolov4_tpu.ops import nms as jnms
 from complex_yolov4_tpu.ops import rotated_boxes as jrb
 from complex_yolov4_tpu_torch.ops import nms as tnms
 from complex_yolov4_tpu_torch.ops import rotated_boxes as trb
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 def _rand_boxes(rng, n, center=10.0, spread=6.0):

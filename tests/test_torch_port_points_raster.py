@@ -29,6 +29,7 @@ import torch
 
 from complex_yolov4_tpu.data import bev as jbev
 from complex_yolov4_tpu_torch.data import bev, synthetic
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 RESIZE_TOL = 1e-6
 

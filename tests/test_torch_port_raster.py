@@ -14,6 +14,7 @@ import torch
 from complex_yolov4_tpu.data import bev as jbev
 from complex_yolov4_tpu_torch.data import bev as tbev
 from complex_yolov4_tpu_torch.data import synthetic
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 def _frames(n):

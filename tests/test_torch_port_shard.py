@@ -40,7 +40,7 @@ from complex_yolov4_tpu_torch.evaluation import evaluator as tev
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet, TrainDarknet
 
-from ._torch_port_util import free_port, run_workers
+from ._torch_port_util import capped_threads, free_port, run_workers  # noqa: F401
 from .test_torch_port_train_data import AUG
 
 NAME = "complex_yolov4_tiny"

@@ -28,7 +28,7 @@ from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 
-from tests._torch_port_util import gap_threshold
+from tests._torch_port_util import capped_threads, gap_threshold  # noqa: F401
 
 K = 64
 NMS = 0.5

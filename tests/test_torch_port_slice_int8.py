@@ -41,6 +41,7 @@ from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import Darknet
 from complex_yolov4_tpu_torch.ops import fused_stage as tfs
 from complex_yolov4_tpu_torch.ops.nms import nms_batch
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 S = 128
 K = 64

@@ -27,6 +27,7 @@ from complex_yolov4_tpu_torch.cli import train_val_split as ttvs
 from complex_yolov4_tpu_torch.cli import visualize_dataset as tviz
 from complex_yolov4_tpu_torch.data import synthetic
 from complex_yolov4_tpu_torch.data.dataset import KittiDataset as TDataset
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

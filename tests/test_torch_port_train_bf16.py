@@ -27,6 +27,7 @@ from complex_yolov4_tpu.models import network as jnet
 from complex_yolov4_tpu_torch import train as T
 from complex_yolov4_tpu_torch.models import weights
 from tests.test_torch_port_train_step import LR, _close, _compare_state, _jax, _setup
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 
 def _grads(spec, model, batch):

@@ -25,6 +25,7 @@ from complex_yolov4_tpu_torch.cli import evaluate, train
 from complex_yolov4_tpu_torch.config.runtime import parse_train_config
 from complex_yolov4_tpu_torch.data import synthetic
 from complex_yolov4_tpu_torch.models import weights
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 NAME = "complex_yolov4_tiny"
 

@@ -33,6 +33,7 @@ from complex_yolov4_tpu.models import network as jnet
 from complex_yolov4_tpu_torch import train as T
 from complex_yolov4_tpu_torch.models import weights, zoo
 from complex_yolov4_tpu_torch.models.network import TrainDarknet
+from tests._torch_port_util import capped_threads  # noqa: F401
 
 NAME, SIZE, LR = "complex_yolov4_tiny", 64, 1e-3
 
