@@ -101,7 +101,8 @@ class TrainConfig:
                                             # step, PERF.md r4; 0 = off, inert
                                             # when batch %% p != 0)
 
-    # profiling (writes a JAX/xprof trace into logs_dir)
+    # profiling (writes a torch.profiler trace into logs_dir: cli/train.py
+    # _start_profiler)
     profile_steps: int = 0                  # 0 = off; else trace N steps
     profile_start: int = 3                  # first traced global iteration
 

@@ -21,6 +21,10 @@ replicated once on each, the batch is split over them in order (a batch
 that does not divide is zero-padded and the pad sliced off), the replicas'
 forwards are all queued before any NMS reads its results back, and the
 detections are concatenated in order.
+
+Each call is one request of `utils/tracing.py` when a recording is open:
+a `serve` span with `raster`, `network` (decode included) and `nms` spans
+inside it, for every input and device count.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..config import kitti as cnf
 from ..data import bev
 from ..models.network import Darknet
 from ..ops.nms import nms_batch
+from ..utils import tracing
 from . import metrics as M
 
 
@@ -82,44 +87,48 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
     def raster(dev, inputs, cap: Optional[int]) -> torch.Tensor:
         """(B, size, size, 3) f32 rasters of `inputs` on `dev`; cap: the
         frame count of a flat COO batch (None for every other input)."""
-        if from_cells:
-            cells, keys, dens = (torch.as_tensor(x, device=dev) for x in inputs)
-            if cap is None:
-                images = bev.make_bev_map_from_cells_batched(cells, keys, dens)
-            else:
-                images = bev.make_bev_map_from_cells(cells, keys, dens, cap)
-            return bev.resize_images(images, size)
-        if from_points:
-            batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(
-                ("points", "point_mask", "flip", "holes", "hole_mask"), inputs)}
-            return bev.images_from_deferred_batch(batch, size)
-        return torch.as_tensor(inputs[0], dtype=torch.float32, device=dev)
+        with tracing.span("raster"):
+            if from_cells:
+                cells, keys, dens = (torch.as_tensor(x, device=dev) for x in inputs)
+                if cap is None:
+                    images = bev.make_bev_map_from_cells_batched(cells, keys, dens)
+                else:
+                    images = bev.make_bev_map_from_cells(cells, keys, dens, cap)
+                return bev.resize_images(images, size)
+            if from_points:
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(
+                    ("points", "point_mask", "flip", "holes", "hole_mask"), inputs)}
+                return bev.images_from_deferred_batch(batch, size)
+            return torch.as_tensor(inputs[0], dtype=torch.float32, device=dev)
 
     def forward(model: Darknet, images: torch.Tensor) -> torch.Tensor:
-        return model(images.permute(0, 3, 1, 2))  # NCHW view, channels_last
+        with tracing.span("network"):
+            return model(images.permute(0, 3, 1, 2))  # NCHW view, channels_last
 
     def nms(decoded: torch.Tensor):
-        return nms_batch(decoded, conf_thresh, nms_thresh, max_boxes)
+        with tracing.span("nms"):
+            return nms_batch(decoded, conf_thresh, nms_thresh, max_boxes)
 
     def run(model: Darknet, inputs, cap: Optional[int] = None):
-        reps = replicas_of(model) if devs else [model]
-        with torch.inference_mode():
-            if len(reps) == 1:
-                return nms(forward(reps[0], raster(reps[0].device, inputs, cap)))
-            xs = [torch.as_tensor(x) for x in inputs]
-            b = xs[0].shape[0]
-            pad = (-b) % len(reps)
-            if pad:  # zero frames: empty clouds, cells or images
-                xs = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in xs]
-            per = (b + pad) // len(reps)
-            # every replica's forward is queued before any NMS syncs with the host
-            decoded = [forward(m, raster(m.device, [x[i * per:(i + 1) * per] for x in xs],
-                                         None))
-                       for i, m in enumerate(reps)]
-            outs = [nms(d) for d in decoded]
-            dets = torch.cat([d.to(devs[0]) for d, _ in outs])
-            masks = torch.cat([m.to(devs[0]) for _, m in outs])
-        return dets[:b], masks[:b]
+        with tracing.span("serve"):
+            reps = replicas_of(model) if devs else [model]
+            with torch.inference_mode():
+                if len(reps) == 1:
+                    return nms(forward(reps[0], raster(reps[0].device, inputs, cap)))
+                xs = [torch.as_tensor(x) for x in inputs]
+                b = xs[0].shape[0]
+                pad = (-b) % len(reps)
+                if pad:  # zero frames: empty clouds, cells or images
+                    xs = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in xs]
+                per = (b + pad) // len(reps)
+                # every replica's forward is queued before any NMS syncs with the host
+                decoded = [forward(m, raster(m.device, [x[i * per:(i + 1) * per] for x in xs],
+                                             None))
+                           for i, m in enumerate(reps)]
+                outs = [nms(d) for d in decoded]
+                dets = torch.cat([d.to(devs[0]) for d, _ in outs])
+                masks = torch.cat([m.to(devs[0]) for _, m in outs])
+            return dets[:b], masks[:b]
 
     def infer_cells(model: Darknet, cells, keys, dens, batch_n: int,
                     batch_cap: Optional[int] = None):

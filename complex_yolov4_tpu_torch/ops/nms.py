@@ -36,6 +36,7 @@ from typing import Tuple
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from ..utils import tracing
 from . import rotated_boxes as rb
 
 _NEG = -1e9
@@ -92,13 +93,15 @@ def _keep_set(valid: torch.Tensor, blocker: torch.Tensor) -> torch.Tensor:
     decides at least the highest-ranked undecided candidate, so k rounds
     always suffice. Exported, one `while_loop` whose extra input is
     `blocker` (a tensor it closed over would not export); eagerly, a Python
-    loop over the same condition and body."""
+    loop over the same condition and body, each round counted as
+    `nms.rounds` (`utils/tracing.py`)."""
     carry = (torch.zeros_like(valid), valid,
              torch.zeros((), dtype=torch.int64, device=valid.device))
     if torch.compiler.is_exporting():
         return while_loop_op(_undecided_left, _rounds, carry, (blocker,))[0]
     while bool(_undecided_left(*carry, blocker)):
         carry = _rounds(*carry, blocker)
+        tracing.count("nms.rounds")
     return carry[0]
 
 

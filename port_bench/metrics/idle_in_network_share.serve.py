@@ -1,0 +1,8 @@
+"""idle_in_network_share.serve: % of the spans pass's wall time in which the
+card idled while the host was in `cyv4.network`."""
+
+from port_bench import spans
+
+
+def read(record):
+    return spans.idle_share(record, "network")
