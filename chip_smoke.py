@@ -44,6 +44,14 @@ fallback):
      then the kernel from its int8 x) on the same inputs, both eager and
      device, with the f32 route's own bound (f32 in and out bytes) and its
      own time on the 1x1 layers beside `torch._int_mm`;
+   - the rotated NMS kernel (`csrc/nms.cu`) at the served shape: 16
+     frames of complex_yolov4's 22,743 decoded boxes at 608, k = 64, conf
+     0.5, nms 0.5, on heads jittered around 12 centres a frame, against
+     `nms_batch_plain` on the same heads: keep masks equal in every frame
+     that holds no same-class pair whose plain IoU lies within 1e-5 of the
+     threshold, rows within 1e-5 relative; eager kernel_ms (host launch
+     included) beside its device time (CUDA-graph replay) and its launches
+     a call;
    every timed shape also prints two yardsticks beside kernel_ms:
    - bound_ms, the least time the card could take for the same work: the
      larger of its bytes (each input read once, each output written once)
@@ -56,8 +64,8 @@ fallback):
      that timing only); for the int8 conv's 1x1 layers one `torch._int_mm`
      (int8 -> int32 sums, no dequantization, bias or activation), summed
      over those layers only and printed beside the kernel's time on them;
-     null, with the reason printed, for the int8 3x3 layers and the fused
-     stage, which no single PyTorch call computes. A kernel slower than
+     null, with the reason printed, for the int8 3x3 layers, the fused
+     stage and the NMS, which no single PyTorch call computes. A kernel slower than
      library_ms loses to the library. The port never calls it;
 4. slice — complex_yolov4 at 608, full width, bf16, random weights from
    seed 0, serves 8 requests of 8 raw synthetic scenes through the port's
@@ -72,6 +80,7 @@ fallback):
    - path 2, int8 PTQ (`default_skip`, calibrated on 2 synthetic frames)
      with both fused CSP stages: stem 1, 3x3 2, fused stage 2 and int8
      conv 68 launches per request;
+   on both paths the NMS kernel launches twice per request;
    on each path the decoded heads of the kernel path are compared with the
    all-plain path on the card (path 2 at batch 2: the plain int8 convs run
    in float64);
@@ -315,8 +324,11 @@ MODEL = "complex_yolov4"
 # kernel launches per request. Path 1: layer 0 -> stem, layers 1, 6, 11,
 # 16, 19 -> conv3x3. Path 2: layer 0 -> stem, layers 1, 11 -> conv3x3,
 # layers 2-10 and 12-23 -> two fused-stage launches, 68 convs -> int8.
-LAUNCHES_PATH1 = {"stem_conv3x3": 1, "conv3x3_fused": 5, "fused_stage": 0, "int8_conv": 0}
-LAUNCHES_PATH2 = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 68}
+# Both: the NMS kernel's two launches.
+LAUNCHES_PATH1 = {"stem_conv3x3": 1, "conv3x3_fused": 5, "fused_stage": 0, "int8_conv": 0,
+                  "nms": 2}
+LAUNCHES_PATH2 = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 68,
+                  "nms": 2}
 # fused stage vs plain: both round to bf16 after every op, so a 1-ulp flip
 # from another f32 summation order can run through up to 12 ops. The error
 # is absolute, on the scale of the intermediates, so it is held to the
@@ -328,7 +340,7 @@ FUSED_REL_TOL = 1e-2
 FUSED_CASES = (("complex_yolov4", (2, 10), 304, 8), ("complex_yolov4", (12, 23), 152, 8),
                ("complex_yolov4_tiny", (2, 8), 152, 8), ("complex_yolov3", (2, 4), 304, 8),
                ("complex_yolov3", (6, 11), 152, 8), ("complex_yolov4", (12, 23), 76, 2))
-KERNEL_NAMES = ("stem_conv3x3", "conv3x3_fused", "fused_stage", "int8_conv")
+KERNEL_NAMES = ("stem_conv3x3", "conv3x3_fused", "fused_stage", "int8_conv", "nms")
 # the f32 instance of the 3x3 kernel and the int8 conv's f32 output: their
 # own rows in the kernels line; their launches are the 3x3 and int8
 # wrappers' counts in the f32 runs (phase 6)
@@ -406,22 +418,31 @@ EXPORT_ARTIFACTS = (("image", {"input_kind": "image"}, False),
                     ("points", {"input_kind": "points", "max_points": 20480}, False),
                     ("points_fused", {"input_kind": "points", "max_points": 20480}, True))
 EXPORT_JOBS = tuple(name for name, _, _ in EXPORT_ARTIFACTS) + ("formats",)
-LAUNCHES_FUSED = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 0}
+# (the exported programs keep the plain NMS: no NMS launch)
+LAUNCHES_FUSED = {"stem_conv3x3": 1, "conv3x3_fused": 2, "fused_stage": 2, "int8_conv": 0,
+                  "nms": 0}
 EXPORT_TIMEOUT_S = 600
 EXPORT_BOX_TOL = 1e-3
 ANCHOR_TOL = 1e-4
+# phase 3's NMS row: the served shape (frames, complex_yolov4's decoded
+# boxes at 608, k), its thresholds, and the kernel's launches a call
+NMS_BATCH, NMS_ROWS, NMS_K, NMS_CONF, NMS_IOU = 16, 22743, 64, 0.5, 0.5
+NMS_LAUNCHES = LAUNCHES_PATH1["nms"]
+NMS_ROW = "nms"
 SOURCES = {"stem_conv3x3": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            "conv3x3_fused": "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            F32_ROW: "complex_yolov4_tpu_torch/csrc/conv3x3.cu",
            INT8_F32_ROW: "complex_yolov4_tpu_torch/csrc/int8_conv.cu",
            "fused_stage": "complex_yolov4_tpu_torch/csrc/fused_stage.cu",
-           "int8_conv": "complex_yolov4_tpu_torch/csrc/int8_conv.cu"}
+           "int8_conv": "complex_yolov4_tpu_torch/csrc/int8_conv.cu",
+           NMS_ROW: "complex_yolov4_tpu_torch/csrc/nms.cu"}
 REPLACES = {"stem_conv3x3": "complex_yolov4_tpu/ops/stem_conv.py:112",
             "conv3x3_fused": "complex_yolov4_tpu/ops/pallas_conv.py:92",
             F32_ROW: "complex_yolov4_tpu/ops/pallas_conv.py:92",
             INT8_F32_ROW: "complex_yolov4_tpu/models/network.py:456",
             "fused_stage": "complex_yolov4_tpu/ops/fused_stage.py:495",
-            "int8_conv": "complex_yolov4_tpu/models/network.py:456"}
+            "int8_conv": "complex_yolov4_tpu/models/network.py:456",
+            NMS_ROW: "none: complex_yolov4_tpu/ops/nms.py nms_batch is XLA"}
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
@@ -753,6 +774,50 @@ def phase_fused(dev):
     return rec
 
 
+def phase_nms(dev):
+    """The NMS kernel vs its plain version at the served shape; bound: one
+    read of the decoded heads and one write of the rows and mask at the HBM
+    rate (the IoU's operations are not tensor-core work and are few)."""
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+    from tests._torch_port_util import nms_heads, nms_near_threshold
+
+    rec = new_record()
+    rec["library_ms"] = None
+    d = nms_heads(SEED, NMS_BATCH, NMS_ROWS).to(dev)
+    n0 = nms_mod.nms_batch.launches
+    got_rows, got_mask = nms_mod.nms_batch(d, NMS_CONF, NMS_IOU, NMS_K)
+    torch.cuda.synchronize()
+    per_call = nms_mod.nms_batch.launches - n0
+    want_rows, want_mask = nms_mod.nms_batch_plain(d, NMS_CONF, NMS_IOU, NMS_K)
+    torch.cuda.synchronize()
+    near = nms_near_threshold(d, NMS_CONF, NMS_IOU, NMS_K)
+    held = [f for f in range(NMS_BATCH)
+            if not (near[f] and not torch.equal(got_mask[f], want_mask[f]))]
+    masks_ok = all(torch.equal(got_mask[f], want_mask[f]) for f in held)
+    rel = max(float(((got_rows[f] - want_rows[f]).abs()
+                     / want_rows[f].abs().clamp(min=1e-1)).max()) for f in held)
+    rec["max_abs_err"] = max(float((got_rows[f] - want_rows[f]).abs().max()) for f in held)
+    ok = (masks_ok and rel <= 1e-5 and per_call == NMS_LAUNCHES
+          and len(held) >= NMS_BATCH - 1 and bool(torch.isfinite(got_rows).all()))
+    k_ms, p_ms = timed_pair(lambda: nms_mod.nms_batch(d, NMS_CONF, NMS_IOU, NMS_K),
+                            lambda: nms_mod.nms_batch_plain(d, NMS_CONF, NMS_IOU, NMS_K), 20)
+    dev_ms = device_ms(lambda: nms_mod.nms_batch(d, NMS_CONF, NMS_IOU, NMS_K))
+    rec["ms"], rec["plain_ms"], rec["device_ms"] = k_ms, p_ms, dev_ms
+    moved = d.numel() * 4 + NMS_BATCH * NMS_K * 10 * 4
+    bnd, by = add_bound(rec, moved, 0.0, "bf16")
+    kept = want_mask.sum(1).int().tolist()
+    print(f"[kernels] nms x{tuple(d.shape)} k={NMS_K} conf {NMS_CONF} nms {NMS_IOU}: kept per "
+          f"frame {kept}; frames held to the plain keep mask {len(held)}/{NMS_BATCH} (the rest "
+          f"hold a pair within 1e-5 of the threshold); masks equal {masks_ok}; rows max rel "
+          f"err {rel:.3g} (tol 1e-5); launches a call {per_call} (want {NMS_LAUNCHES}); "
+          f"kernel_ms={k_ms:.4f} eager, {dev_ms:.4f} device; bound_ms={bnd:.4f} ({by}: "
+          f"{moved / 1e6:.1f} MB); plain_ms={p_ms:.4f} {'ok' if ok else 'FAIL'}")
+    print("[kernels] nms library_ms: null, PyTorch has no rotated NMS")
+    if not ok:
+        raise AssertionError("NMS kernel vs plain: keep masks, rows or launches differ")
+    return rec
+
+
 def _int8_layers():
     """(key, output chained) per quantized conv of complex_yolov4 at 608
     (`default_skip`): key = (k, stride, C_in, C_out, H_in, input dtype),
@@ -1018,10 +1083,11 @@ def raster(req, dev, frames):
 
 
 def counters():
-    from complex_yolov4_tpu_torch.ops import conv3x3, fused_stage, int8_conv, stem_conv
+    from complex_yolov4_tpu_torch.ops import conv3x3, fused_stage, int8_conv, nms, stem_conv
 
     return {"stem_conv3x3": stem_conv.conv3x3_stem, "conv3x3_fused": conv3x3.conv3x3_fused,
-            "fused_stage": fused_stage.apply_segment, "int8_conv": int8_conv.int8_conv}
+            "fused_stage": fused_stage.apply_segment, "int8_conv": int8_conv.int8_conv,
+            "nms": nms.nms_batch}
 
 
 def calib_rasters(dev):
@@ -1215,14 +1281,15 @@ def phase_split(label, model, dev):
 
 def expected_launches(model, batches: int, calib_batches: int):
     """Kernel launches of an evaluation run, from the routes: per batch, one
-    per routed stem, 3x3 and int8 layer and one per fused segment, and per
-    int8 calibration batch those of the network (no int8, no fused
-    segments) that calibrates in the model's compute dtype: in bf16 the
-    stem and the 3x3 kernel, in f32 the 3x3 kernel."""
+    per routed stem, 3x3 and int8 layer, one per fused segment and the
+    NMS's, and per int8 calibration batch those of the network (no int8, no
+    fused segments, no NMS) that calibrates in the model's compute dtype:
+    in bf16 the stem and the 3x3 kernel, in f32 the 3x3 kernel."""
     from complex_yolov4_tpu_torch.models.network import kernel_routes
 
-    def count(routes):
+    def count(routes, nms):
         n = dict.fromkeys(KERNEL_NAMES, 0)
+        n["nms"] = nms
         for r in routes.values():
             if r in ("stem", "conv3x3", "int8"):
                 n[{"stem": "stem_conv3x3", "conv3x3": "conv3x3_fused",
@@ -1230,8 +1297,8 @@ def expected_launches(model, batches: int, calib_batches: int):
         n["fused_stage"] = len({r for r in routes.values() if r.startswith("fused_stage")})
         return n
 
-    per_batch = count(model.routes(608))
-    calib = count(kernel_routes(model.spec, 608, model.compute_dtype))
+    per_batch = count(model.routes(608), NMS_LAUNCHES)
+    calib = count(kernel_routes(model.spec, 608, model.compute_dtype), 0)
     total = {k: per_batch[k] * batches + calib[k] * calib_batches for k in KERNEL_NAMES}
     return per_batch, total
 
@@ -1775,6 +1842,7 @@ def phase_train(dev, tmp, root):
     got = {k: fn.launches for k, fn in fns.items()}
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want["conv3x3_fused"] = per_val_batch * val_batches
+    want["nms"] = NMS_LAUNCHES * val_batches
     n_steps = len(timings["step"])
     print(f"[train] cli.train: {MODEL} @608 bf16 batch {TRAIN_BATCH}, subdivisions "
           f"{TRAIN_SUBDIV}: {n_steps} micro-batches, {state.global_step // TRAIN_SUBDIV} "
@@ -1782,7 +1850,8 @@ def phase_train(dev, tmp, root):
           + " ".join(f"{x * 1e3:.1f}" for x in timings["step"])
           + f"; f32 validation mAP={timings['mAP'][0]:.4f} in {timings['val'][0]:.2f} s; "
           f"whole run {wall:.1f} s; launches {got} (validation: {per_val_batch} f32 3x3 "
-          f"launches per batch from the default f32 routes {spec_routes}, {val_batches} "
+          f"launches and {NMS_LAUNCHES} NMS launches per batch, 3x3 from the default f32 "
+          f"routes {spec_routes}, {val_batches} "
           f"batches)")
     if (n_steps != TRAIN_FRAMES // TRAIN_BATCH or state.global_step != n_steps
             or got != want):
@@ -1806,7 +1875,8 @@ def phase_train(dev, tmp, root):
           f"model.routes(608) {per_batch}; device_ms/batch "
           + " ".join(f"{x * 1e3:.2f}" for x in cold["infer"])
           + f"; eval frames/s (cold, every batch)={TRAIN_VAL_FRAMES / cold['total'][0]:.2f}")
-    if (got != want or model.compute_dtype != torch.float32 or any(per_batch.values())
+    if (got != want or model.compute_dtype != torch.float32
+            or any(v for k, v in per_batch.items() if k != "nms")
             or n_batches != TRAIN_VAL_FRAMES // BATCH):
         raise AssertionError(f"f32 eval of the checkpoint: {got} != {want}")
     ref = state.model.to_serving(dev, torch.float32)
@@ -2137,7 +2207,7 @@ def phase_test_cli(dev, tmp, root):
     """Phase 7 (h): `cli.test.main` on the TEST_FRAMES synthetic test frames of
     `root`, complex_yolov4 @608 bf16 batch 8, points raster, the launch
     counts set to 0 just before: per batch the routes' stem and 3x3
-    launches. Returns the launches."""
+    launches and the NMS's. Returns the launches."""
     import os
 
     from complex_yolov4_tpu_torch.cli import test
@@ -2571,6 +2641,7 @@ def phase_ddp_gloo(dev, ranks, train_root):
     val_batches = -(-TRAIN_VAL_FRAMES // DDP_PER_RANK)
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want["conv3x3_fused"] = sum(1 for r in routes.values() if r == "conv3x3") * val_batches
+    want["nms"] = NMS_LAUNCHES * val_batches
     micro = DDP_CLI_FRAMES // (DDP_RANKS * DDP_PER_RANK)
     ckpts = os.listdir(os.path.join(wd, "checkpoints", "complexer_yolo"))
     log = open(os.path.join(wd, "logs", "complexer_yolo", "logger_complexer_yolo.txt")).read()
@@ -2597,8 +2668,8 @@ def phase_ddp_gloo(dev, ranks, train_root):
 def phase_ddp_serve(path1, dev):
     """Phase 8 (c): path 1 served over two replicas on the card
     (`make_inference_fn(devices=[cuda:0, cuda:0])`, batched COO cells split
-    4 + 4), the launch counts set to 0 just before: each replica's stem and
-    3x3 launches per request. Its detections equal, bit for bit, the
+    4 + 4), the launch counts set to 0 just before: each replica's stem,
+    3x3 and NMS launches per request. Its detections equal, bit for bit, the
     one-device function's on each replica's share (batch 4); beside them,
     the one-device batch of 8 (cuDNN may pick another algorithm at batch 8,
     and random weights put many candidates at the threshold, so those are
@@ -2632,8 +2703,8 @@ def phase_ddp_serve(path1, dev):
         d8, m8 = one(path1, *req, BATCH)
         summary.append((masks.sum(1).int().tolist(), m8.sum(1).int().tolist()))
     print(f"[ddp] (c) path 1 over 2 replicas on {dev} (batched COO, 4 + 4 frames), "
-          f"{len(reqs)} requests of {BATCH}: launches {got} (want {want}: stem 1 and 3x3 5 per "
-          f"replica per request); detections equal to the one-device function on each "
+          f"{len(reqs)} requests of {BATCH}: launches {got} (want {want}: stem 1, 3x3 5 and NMS "
+          f"2 per replica per request); detections equal to the one-device function on each "
           f"replica's 4 frames: {exact}; detections per frame split vs one device at batch "
           f"{BATCH}: {summary}")
     if got != want or not exact:
@@ -2901,7 +2972,7 @@ def phase_export(dev, exporter, roots, smi):
         keep_equal = all(torch.equal(gm, wm) for (_, gm), (_, wm) in zip(got, want))
         err = max(float((gd - wd).abs().max()) for (gd, _), (wd, _) in zip(got, want))
         bit_equal = keep_equal and err == 0.0
-        per_call = LAUNCHES_FUSED if fused else LAUNCHES_PATH1
+        per_call = LAUNCHES_FUSED if fused else {**LAUNCHES_PATH1, "nms": 0}
         want_l = {k: v * rec["calls"] for k, v in per_call.items()}
         live = [int(m.sum()) for _, m in got]
         warm_pt2, warm_eager = float(np.mean(rec["ms"])), float(np.mean(eager_ms[name]))
@@ -2978,6 +3049,8 @@ def main() -> None:
         lap("phase 3 (fused stage)")
         records["int8_conv"], records[INT8_F32_ROW] = phase_int8(dev)
         lap("phase 3 (int8 conv)")
+        records[NMS_ROW] = phase_nms(dev)
+        lap("phase 3 (NMS)")
         spec, state, path1, path2 = build_models(dev)
         l1 = serve_path("path 1 (bf16)", spec, path1, LAUNCHES_PATH1, BATCH, dev)
         l8 = phase_ddp_serve(path1, dev)
@@ -3016,8 +3089,12 @@ def main() -> None:
     f32_of = {F32_ROW: "conv3x3_fused", INT8_F32_ROW: "int8_conv"}
     for k in KERNEL_NAMES + tuple(f32_of):
         r = records[k]
-        launches = (sum(run[f32_of[k]] for run in f32_runs.values()) if k in f32_of
-                    else sum(run[k] for run in runs.values()))
+        if k in f32_of:
+            launches = sum(run[f32_of[k]] for run in f32_runs.values())
+        elif k == NMS_ROW:  # f32 heads in the bf16 and f32 runs alike
+            launches = sum(run[k] for run in {**runs, **f32_runs}.values())
+        else:
+            launches = sum(run[k] for run in runs.values())
         row = {
             "name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
             "launches": launches,
@@ -3028,6 +3105,8 @@ def main() -> None:
         if "library_layers" in r:
             row.update(library_layers=r["library_layers"],
                        ms_on_library_layers=r["ms_on_library_layers"])
+        if "device_ms" in r:
+            row["device_ms"] = r["device_ms"]
         kernels.append(row)
     print("[kernels] launches per run: " + "; ".join(
         f"{name} {run}" for name, run in {**runs, **f32_runs}.items()))
@@ -3039,7 +3118,8 @@ def main() -> None:
           "12-23; int8: "
           "the 68 quantized convs, but library_ms over its library_layers 1x1 convs only, "
           "on which the kernel takes ms_on_library_layers); bound_by: what bounds the layers "
-          "holding most of bound_ms")
+          f"holding most of bound_ms; {NMS_ROW}: one call at the served shape (16 frames, k=64), "
+          "launches over the bf16 and f32 runs together")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -121,7 +121,8 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
                 if pad:  # zero frames: empty clouds, cells or images
                     xs = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in xs]
                 per = (b + pad) // len(reps)
-                # every replica's forward is queued before any NMS syncs with the host
+                # every replica's forward is queued before the first NMS; on the card
+                # the NMS reads nothing back either, so no replica waits for another
                 decoded = [forward(m, raster(m.device, [x[i * per:(i + 1) * per] for x in xs],
                                              None))
                            for i, m in enumerate(reps)]
@@ -162,10 +163,14 @@ def evaluate_map(
     """Run the val split and compute precision/recall/AP/F1/mAP
     (reference protocol: evaluate.py:23-64 + evaluation_utils.py:70-190).
 
-    Batches are matched as they come: NMS syncs with the host every round,
-    so an inference call returns with its batch done on the device, and
-    the JAX package's one-batch-in-flight order would overlap nothing. The
-    loader's prefetch thread overlaps the next batch's assembly.
+    Batches are matched as they come: matching reads the batch's
+    detections back, which waits for the device. On the card the NMS reads
+    nothing back, so an inference call returns with its batch still queued,
+    and the JAX package's one-batch-in-flight order (the next batch
+    launched before this one is matched) would overlap matching with the
+    device; that order is not taken yet. The plain NMS (CPU, export) reads
+    the host every round. The loader's prefetch thread overlaps the next
+    batch's assembly.
 
     timings: a dict that, when given, receives per batch the host seconds
     spent waiting on the loader ("load"), in the inference call up to a

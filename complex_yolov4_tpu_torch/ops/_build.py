@@ -142,6 +142,13 @@ def load() -> ctypes.CDLL:
         lib.cyv4_fused_stage.restype = i
         lib.cyv4_int8_conv.argtypes = [ctypes.POINTER(Int8ConvArgs)]
         lib.cyv4_int8_conv.restype = i
+        lib.cyv4_nms.argtypes = [vp, vp, vp, vp] + [i] * 5 + [ctypes.c_float] * 2 + [vp, i]
+        lib.cyv4_nms.restype = i
+        lib.cyv4_nms_limits.argtypes = [ctypes.POINTER(i)]
+        lib.cyv4_nms_limits.restype = None
+        limits = (i * 3)()
+        lib.cyv4_nms_limits(limits)
+        lib.nms_limits = tuple(limits)  # (most candidates, rows a chunk, most keys)
         lib.cyv4_error_string.argtypes = [i]
         lib.cyv4_error_string.restype = ctypes.c_char_p
         _lib = lib

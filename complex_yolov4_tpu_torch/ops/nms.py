@@ -27,6 +27,19 @@ request mostly resolves in one round and an idle round costs a dozen
 kernel launches. A flat `torch.topk` and a plain index gather replace the
 TPU's hierarchical top-k and one-hot matmul gather. Score ties may order
 differently from the JAX package's top-k; ties carry no semantics.
+
+`nms_batch` is the wrapper: a CUDA tensor goes to the hand-written kernel
+(`csrc/nms.cu`, `cyv4_nms`: the whole NMS of the batch in two launches, no
+host read, the greedy keep set as one sequential pass, the same set the
+fixpoint reaches), with k at most the limit the library states (256), or
+the call raises; a CPU tensor, and any tensor under `torch.export`, goes
+to `nms_batch_plain`, the plain version above, so an exported program
+keeps its `while_loop`. The kernel's IoU
+repeats `rotated_boxes.rotated_iou`'s f32 ops in order; its sums run in
+index order, so merged rows may differ from the plain version's by an ulp
+and a pair whose IoU lies within about 1e-6 of the threshold may decide
+the other way. Each kernel call counts `nms.kernel` (`utils/tracing.py`);
+`nms.rounds` counts the plain loop's rounds only.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
 from ..utils import tracing
+from . import _build
 from . import rotated_boxes as rb
 
 _NEG = -1e9
@@ -105,13 +119,11 @@ def _keep_set(valid: torch.Tensor, blocker: torch.Tensor) -> torch.Tensor:
     return carry[0]
 
 
-def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
-              nms_thresh: float = 0.4, max_boxes: int = 256
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched NMS: (B, N, 7+C) f32 -> ((B, max_boxes, 9), (B, max_boxes)).
-
-    Detections are score-ordered; dead rows are zero; the mask is 1.0 for
-    live detections."""
+def nms_batch_plain(decoded: torch.Tensor, conf_thresh: float = 0.95,
+                    nms_thresh: float = 0.4, max_boxes: int = 256
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, on decoded's device (see
+    `nms_batch`)."""
     b = decoded.shape[0]
     k = min(max_boxes, decoded.shape[1])
     dev = decoded.device
@@ -142,6 +154,56 @@ def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
     mask = torch.zeros((b, max_boxes), dtype=decoded.dtype, device=dev)
     mask[:, :k] = kept
     return out, mask
+
+
+def _nms_kernel(decoded: torch.Tensor, conf_thresh: float, nms_thresh: float,
+                max_boxes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`cyv4_nms` on the current stream of decoded's device."""
+    if decoded.dim() != 3 or decoded.dtype != torch.float32 or decoded.shape[-1] < 8:
+        raise ValueError(f"decoded must be (B, N, 7 + classes) float32, got "
+                         f"{tuple(decoded.shape)} {decoded.dtype}")
+    b, n, d = decoded.shape
+    k = min(max_boxes, n)
+    lib = _build.load()
+    max_k, chunk, max_list = lib.nms_limits  # csrc/nms.cu's, read at load
+    if k > max_k:
+        raise ValueError(f"the CUDA NMS holds at most {max_k} candidates a frame: max_boxes "
+                         f"{max_boxes} over {n} rows gives k = {k}")
+    chunks = -(-n // chunk)
+    if chunks * k > max_list:
+        raise ValueError(f"the CUDA NMS holds at most {max_list} keys a frame: {n} rows in "
+                         f"{chunks} chunks of {chunk}, k = {k}")
+    dev = decoded.device
+    out = torch.empty((b, max_boxes, 9), dtype=torch.float32, device=dev)
+    mask = torch.empty((b, max_boxes), dtype=torch.float32, device=dev)
+    x = decoded.contiguous()
+    lists = torch.empty((b, chunks, k), dtype=torch.int64, device=dev)
+    index = x.get_device()
+    code = lib.cyv4_nms(
+        x.data_ptr(), lists.data_ptr(), out.data_ptr(), mask.data_ptr(), b, n, d, k, max_boxes,
+        conf_thresh, nms_thresh, torch._C._cuda_getCurrentRawStream(index), index)
+    if code:
+        _build.check(code, "cyv4_nms")
+    nms_batch.launches += 2
+    tracing.count("nms.kernel")
+    return out, mask
+
+
+def nms_batch(decoded: torch.Tensor, conf_thresh: float = 0.95,
+              nms_thresh: float = 0.4, max_boxes: int = 256
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched NMS: (B, N, 7+C) f32 -> ((B, max_boxes, 9), (B, max_boxes)).
+
+    Detections are score-ordered; dead rows are zero; the mask is 1.0 for
+    live detections. A CUDA tensor runs the kernel (k = min(max_boxes, N)
+    at most 256, else the call raises); a CPU tensor, or any tensor
+    while `torch.export` traces, runs `nms_batch_plain`."""
+    if decoded.is_cuda and not torch.compiler.is_exporting():
+        return _nms_kernel(decoded, conf_thresh, nms_thresh, max_boxes)
+    return nms_batch_plain(decoded, conf_thresh, nms_thresh, max_boxes)
+
+
+nms_batch.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 def nms_single(decoded: torch.Tensor, conf_thresh: float = 0.95,

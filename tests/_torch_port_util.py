@@ -1,7 +1,8 @@
 """Shared helpers of the PyTorch port's parity tests (not a test module).
 
 It imports no JAX at module level: the card's tests
-(`test_torch_port_gpu.py`, run where JAX is absent) import it too.
+(`test_torch_port_gpu.py`, run where JAX is absent) import it too, and so
+does `chip_smoke.py` for the NMS kernel's heads and near-threshold frames.
 
 Every `test_torch_port_*.py` imports `capped_threads`, an autouse fixture:
 under pytest-xdist each worker's torch would otherwise run an intra-op pool
@@ -165,3 +166,35 @@ def wait_workers(procs, timeout=WORKER_TIMEOUT_S):
 def run_workers(script, args_of_rank, world=2, timeout=WORKER_TIMEOUT_S, cwd=_REPO):
     """`start_workers`, then `wait_workers`."""
     return wait_workers(start_workers(script, args_of_rank, world, cwd), timeout)
+
+
+def nms_heads(seed, b, n, classes=3):
+    """(B, N, 7 + classes) f32 decoded heads: boxes jittered around 12
+    centres a frame, so that many overlap, and continuous scores, so that
+    no two candidates tie."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(20, 580, (b, 12, 2))
+    pick = rng.integers(0, 12, (b, n))
+    xy = np.take_along_axis(centers, pick[..., None], axis=1) + rng.normal(0, 4, (b, n, 2))
+    yaw = rng.uniform(-np.pi, np.pi, (b, n)) * 0.2 + (pick % 3) * 0.5
+    d = np.concatenate([xy, rng.uniform(8, 40, (b, n, 2)), np.sin(yaw)[..., None],
+                        np.cos(yaw)[..., None], rng.uniform(0.2, 1.0, (b, n, 1)),
+                        rng.uniform(0.0, 1.0, (b, n, classes))], axis=-1).astype(np.float32)
+    return torch.from_numpy(d)
+
+
+def nms_near_threshold(d, conf, thr, k):
+    """(B,) bool: the frame holds two valid candidates of one class whose
+    plain IoU lies within 1e-5 of thr. The NMS kernel sums in another order
+    than PyTorch's reductions, so such a pair may decide the other way."""
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+    from complex_yolov4_tpu_torch.ops import rotated_boxes as rb
+
+    cand, valid = nms_mod._candidates(d, conf, k)
+    b5 = torch.stack([cand[..., 0], cand[..., 1], cand[..., 2], cand[..., 3],
+                      torch.atan2(cand[..., 4], cand[..., 5])], dim=-1)
+    ii, jj = torch.triu_indices(k, k, 1, device=d.device)
+    iou = rb.rotated_iou(b5[:, ii], b5[:, jj])
+    near = ((iou - thr).abs() < 1e-5) & valid[:, ii] & valid[:, jj]
+    near &= cand[:, ii, 8] == cand[:, jj, 8]
+    return near.any(1).cpu()

@@ -23,6 +23,7 @@ import torch
 from complex_yolov4_tpu_torch.ops import conv3x3 as conv_mod
 from complex_yolov4_tpu_torch.ops import stem_conv as stem_mod
 from tests._torch_port_util import capped_threads  # noqa: F401
+from tests._torch_port_util import nms_heads, nms_near_threshold
 
 pytestmark = pytest.mark.gpu
 
@@ -542,3 +543,110 @@ def test_train_cli_on_card(tmp_path):
     out, model = evaluate.main(["--dataset_dir", root, "--model", "complex_yolov4_tiny",
                                 "--batch_size", "2", "--pretrained_path", ckpt])
     assert model.device.type == "cuda" and np.isfinite(float(out["mAP"]))
+
+
+# Rotated NMS kernel (csrc/nms.cu) against `nms_batch_plain` on the card.
+# The kernel repeats the plain IoU's f32 ops in order, but sums in index
+# order where PyTorch's reductions need not: a pair whose plain IoU lies
+# within 1e-5 of nms_thresh may decide the other way, so a frame holding
+# such a pair of one class is not held to the plain keep mask; every other
+# frame keeps the same rows, and the merged rows (conf-weighted f32 sums in
+# another order) agree within 1e-5 relative (1e-6 absolute for im, re near
+# 0). The heads are f32 with continuous scores: no two candidates tie.
+
+def _check_nms(d, conf, thr, k):
+    """Kernel against plain on the card; returns the kept rows a frame."""
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+
+    got_rows, got_mask = nms_mod.nms_batch(d, conf, thr, k)
+    want_rows, want_mask = nms_mod.nms_batch_plain(d, conf, thr, k)
+    near = nms_near_threshold(d, conf, thr, min(k, d.shape[1]))
+    assert got_rows.shape == want_rows.shape and got_mask.shape == want_mask.shape
+    held = 0
+    for f in range(d.shape[0]):
+        if near[f] and not torch.equal(got_mask[f], want_mask[f]):
+            continue
+        held += 1
+        assert torch.equal(got_mask[f], want_mask[f]), f
+        torch.testing.assert_close(got_rows[f], want_rows[f], rtol=1e-5, atol=1e-6)
+    assert held >= d.shape[0] - 1  # a borderline pair excuses a frame rarely
+    return want_mask.sum(1).cpu()
+
+
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("k", [64, 128, 256])
+def test_nms_kernel_matches_plain(k, batch):
+    dev = _cuda()
+    d = nms_heads(k + batch, batch, 6000).to(dev)
+    kept = _check_nms(d, 0.5, 0.4, k)
+    assert (kept > 5).all() and (kept < k).all()  # suppression happened
+
+
+def test_nms_kernel_cases():
+    """A frame with no candidate, one where the best box suppresses every
+    other, a chain of boxes each suppressing the next (the plain fixpoint
+    needs a round a kept link), and rows fewer than k."""
+    dev = _cuda()
+    d = nms_heads(1, 2, 3000)
+    d[1, :, 6] *= 0.1  # frame 1: every conf below 0.5
+    assert _check_nms(d.to(dev), 0.5, 0.5, 64).tolist()[1] == 0
+    rng = np.random.default_rng(2)
+    n = 300
+    yaw = 0.3 + rng.normal(0, 0.01, n)
+    crowd = np.stack([300 + rng.normal(0, 0.5, n), 200 + rng.normal(0, 0.5, n),
+                      20 + rng.normal(0, 0.3, n), 40 + rng.normal(0, 0.3, n), np.sin(yaw),
+                      np.cos(yaw), rng.uniform(0.6, 1.0, n), rng.uniform(0.5, 1.0, n)], -1)
+    assert _check_nms(torch.from_numpy(crowd[None].astype(np.float32)).to(dev),
+                      0.5, 0.5, 64).tolist() == [1]
+    chain = [[3.0 * i, 0.0, 10.0, 10.0, 0.0, 1.0, 0.9 - 0.01 * i, 1.0] for i in range(40)]
+    chain += [[500.0 + 50 * j, 500.0, 10.0, 10.0, 0.0, 1.0, 0.1, 1.0] for j in range(2)]
+    assert _check_nms(torch.tensor([chain], device=dev), 0.5, 0.5, 64).tolist() == [20]
+    _check_nms(nms_heads(3, 2, 40).to(dev), 0.3, 0.5, 64)
+
+
+def test_nms_kernel_makes_no_host_sync():
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+
+    dev = _cuda()
+    d = nms_heads(4, 16, 22743).to(dev)
+    nms_mod.nms_batch(d, 0.5, 0.5, 64)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rows, mask = nms_mod.nms_batch(d, 0.5, 0.5, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(mask.sum()) > 0
+
+
+def test_nms_kernel_launches_and_refusals():
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+
+    dev = _cuda()
+    d = nms_heads(5, 2, 600).to(dev)
+    n0 = nms_mod.nms_batch.launches
+    nms_mod.nms_batch(d, 0.5, 0.5, 64)
+    assert 1 <= nms_mod.nms_batch.launches - n0 <= 2
+    with pytest.raises(ValueError, match="at most 256"):
+        nms_mod.nms_batch(d, 0.5, 0.5, 257)
+    with pytest.raises(ValueError):  # the kernel takes f32 heads only
+        nms_mod.nms_batch(d.to(torch.bfloat16), 0.5, 0.5, 64)
+
+
+def test_served_request_counts_one_nms_kernel():
+    """complex_yolov4_tiny served on the card in a tracing recording: one
+    `nms.kernel` a request, no `nms.rounds`."""
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+    from complex_yolov4_tpu_torch.models import network, weights, zoo
+    from complex_yolov4_tpu_torch.utils import tracing
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4_tiny", width=128, height=128)
+    model = network.Darknet(spec, weights.from_folded(spec, weights.fold_batchnorm(
+        spec, *weights.init_params_np(spec, 0))), compute_dtype=torch.bfloat16, device=dev)
+    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, img_size=128)
+    images = torch.rand(2, 128, 128, 3)
+    with tracing.recording() as rec:
+        for _ in range(3):
+            infer(model, images)
+    assert rec.counters == {r: {"nms.kernel": 1} for r in range(3)}
