@@ -14,7 +14,6 @@ import socket
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import pytest
@@ -25,8 +24,6 @@ from complex_yolov4_tpu_torch.models.network import Darknet
 
 CPU = torch.device("cpu")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the bound on every child process of the data-parallel tests
-WORKER_TIMEOUT_S = 240
 
 
 def thread_cap() -> int:
@@ -136,36 +133,31 @@ def start_workers(script, args_of_rank, world=2, cwd=_REPO):
     return procs
 
 
-def wait_workers(procs, timeout=WORKER_TIMEOUT_S):
-    """Wait for the processes of `start_workers` within `timeout` seconds
-    (killing every one when it runs out) and return their outputs; fails on
-    a non-zero exit."""
-    deadline = time.monotonic() + timeout
+def wait_workers(procs):
+    """Wait for the processes of `start_workers` and return their outputs;
+    fails on a non-zero exit. The test phase's time limit
+    (`tests/_time_limit.py`) bounds the wait; every process still running
+    when it ends, on that limit or any other exception, is killed."""
     try:
-        try:
-            for p, _ in procs:
-                p.wait(timeout=max(0.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for p, _ in procs:
-                p.kill()
-            for p, _ in procs:
-                p.wait()
-            pytest.fail(f"workers did not finish in {timeout} s")
+        for p, _ in procs:
+            p.wait()
         outs = []
         for p, log in procs:
             log.seek(0)
             outs.append(log.read())
     finally:
-        for _, log in procs:
+        for p, log in procs:
+            p.kill()
+            p.wait()
             log.close()
     for r, ((p, _), out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r} failed:\n{out}"
     return outs
 
 
-def run_workers(script, args_of_rank, world=2, timeout=WORKER_TIMEOUT_S, cwd=_REPO):
+def run_workers(script, args_of_rank, world=2, cwd=_REPO):
     """`start_workers`, then `wait_workers`."""
-    return wait_workers(start_workers(script, args_of_rank, world, cwd), timeout)
+    return wait_workers(start_workers(script, args_of_rank, world, cwd))
 
 
 def nms_heads(seed, b, n, classes=3):
