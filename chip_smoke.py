@@ -80,7 +80,12 @@ fallback):
    - path 2, int8 PTQ (`default_skip`, calibrated on 2 synthetic frames)
      with both fused CSP stages: stem 1, 3x3 2, fused stage 2 and int8
      conv 68 launches per request;
-   on both paths the NMS kernel launches twice per request;
+   on both paths the NMS kernel launches twice per request; then each
+   path serves REQUESTS requests at one capacity eager and as a CUDA
+   graph's replays (`make_inference_fn`'s graph), its replays held equal
+   to the eager answers bit for bit, the capture held to the path's
+   launches of one request and the replays to none, and one line prints
+   both ms a request and the capture's launches;
    on each path the decoded heads of the kernel path are compared with the
    all-plain path on the card (path 2 at batch 2: the plain int8 convs run
    in float64);
@@ -1135,10 +1140,13 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
     """Serve REQUESTS requests of BATCH raw clouds through make_inference_fn,
     each twice: its COO built by numpy (crop, `aggregate_bev_cells`, pack)
     and by the native library (`aggregate_cells` crops inside), in
-    alternating order, the packed arrays held equal. The launch counts are
-    set to 0 just before and read just after. Prints each COO's measured
-    e2e (host COO + device part, served one after the other). Returns the
-    launches."""
+    alternating order, the packed arrays held equal, each COO through a
+    function of its own (a capacity a request: every call is its key's
+    first and runs eager). The launch counts are set to 0 just before and
+    read just after; a replay would launch through no wrapper, so the
+    calls that count are those less the functions' replays. Prints each
+    COO's measured e2e (host COO + device part, served one after the
+    other). Returns the launches."""
     from complex_yolov4_tpu_torch import native
     from complex_yolov4_tpu_torch.data import bev
     from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
@@ -1149,16 +1157,18 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
         kinds[r] = kinds.get(r, 0) + 1
     print(f"[slice] {label}: {MODEL} @608 bf16, {len(spec.layers)} layers, "
           f"routed layers by kernel {kinds}")
-    infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
     coo = {"numpy": lambda raw: host_coo([bev.remove_points_outside(c) for c in raw]),
            "native": lambda raw: host_coo(raw, native.aggregate_cells)}
-    infer(model, *coo["numpy"](raw_scenes(-1)), BATCH)  # warm-up
-    infer(model, *coo["native"](raw_scenes(-1)), BATCH)
+    infers = {kind: make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64,
+                                      from_cells=True) for kind in coo}
+    for kind in coo:  # warm-up
+        infers[kind](model, *coo[kind](raw_scenes(-1)), BATCH)
     torch.cuda.synchronize()
 
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    replays = sum(f.replays for f in infers.values())
     host_s = {k: [] for k in coo}
     infer_s = {k: [] for k in coo}
     outs = []
@@ -1168,7 +1178,7 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
             t0 = time.perf_counter()
             req = reqs[kind] = coo[kind](raw_scenes(r))
             t1 = time.perf_counter()
-            dets, masks = infer(model, *req, BATCH)
+            dets, masks = infers[kind](model, *req, BATCH)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             host_s[kind].append(t1 - t0)
@@ -1177,8 +1187,10 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
         if not all(np.array_equal(a, b) for a, b in zip(reqs["numpy"], reqs["native"])):
             raise AssertionError(f"request {r}: native COO pack differs from numpy")
     launches = {k: fn.launches for k, fn in fns.items()}
-    print(f"[slice] {label} launches over {REQUESTS} requests served twice: {launches}")
-    want = {k: n * 2 * REQUESTS for k, n in expected.items()}
+    replays = sum(f.replays for f in infers.values()) - replays
+    print(f"[slice] {label} launches over {REQUESTS} requests served twice ({replays} "
+          f"replayed): {launches}")
+    want = {k: n * (2 * REQUESTS - replays) for k, n in expected.items()}
     if launches != want:
         raise AssertionError(f"{label} did not run through the kernels: {launches} != {want}")
 
@@ -1216,6 +1228,63 @@ def serve_path(label, spec, model, expected, compare_batch, dev):
     if rel > DECODED_REL_TOL or prob > PROB_ABS_TOL:
         raise AssertionError(f"{label}: kernel path and plain path disagree")
     return launches
+
+
+def serve_graph(label, model, expected, dev):
+    """Eager against replay, REQUESTS requests of BATCH at one capacity (the
+    largest request's live cells + 1/8): ms a request, host clock, synced
+    after each, eager through a fresh function a request (a key's first
+    call runs eager), replay through one function after its eager call and
+    its capture; every replay's detections and masks equal to the eager
+    ones bit for bit, one capture and a replay a request. The launch
+    counts are set to 0 just before the capture: the capture is the one
+    pass of the graph's kernels through the wrappers, so it has to launch
+    `expected` (one request), and the replays none. Returns (eager ms,
+    replay ms, the means; the capture's launches)."""
+    from complex_yolov4_tpu_torch.data import bev
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+
+    kw = dict(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
+    per = [list(zip(*map(bev.aggregate_bev_cells, make_scenes(r)))) for r in range(REQUESTS)]
+    most = max(sum(len(c) for c in cells) for cells, _ in per)
+    reqs = [bev.pack_cells_flat(cells, keys, most + most // 8) for cells, keys in per]
+
+    def timed(infer, req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets, masks = infer(model, *req, BATCH)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, dets, masks
+
+    make_inference_fn(**kw)(model, *reqs[0], BATCH)  # warm-up
+    eager = [timed(make_inference_fn(**kw), q) for q in reqs]
+    infer = make_inference_fn(**kw)
+    infer(model, *reqs[0], BATCH)  # the key's eager call
+    torch.cuda.synchronize()
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    infer(model, *reqs[1], BATCH)  # the capture
+    captured = {k: fn.launches for k, fn in fns.items()}
+    replay = [timed(infer, q) for q in reqs]
+    replayed = {k: fn.launches - captured[k] for k, fn in fns.items()}
+    equal = all(torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                for a, b in zip(eager, replay))
+    e_ms, r_ms = float(np.mean([e[0] for e in eager])), float(np.mean([r[0] for r in replay]))
+    print(f"[slice] {label} served graph, {REQUESTS} requests of {BATCH} at one capacity "
+          f"({most + most // 8} lanes), ms a request synced: eager "
+          + " ".join(f"{e[0]:.2f}" for e in eager) + f" (mean {e_ms:.2f}), replay "
+          + " ".join(f"{r[0]:.2f}" for r in replay) + f" (mean {r_ms:.2f}); replay equal to "
+          f"eager bit for bit: {equal}; captures {infer.captures}, replays {infer.replays}; "
+          f"launches in the capture {captured}, in the replays {replayed}")
+    if not equal or (infer.captures, infer.replays) != (1, REQUESTS):
+        raise AssertionError(f"{label}: the served graph differs from the eager path or "
+                             f"did not replay")
+    if captured != expected or any(replayed.values()):
+        raise AssertionError(f"{label}: the captured graph did not run through the kernels: "
+                             f"{captured} != {expected}, or a replay launched through a "
+                             f"wrapper: {replayed}")
+    return e_ms, r_ms, captured
 
 
 def layerwise_segments(model, dev):
@@ -1264,6 +1333,9 @@ def phase_split(label, model, dev):
         f"{k} {np.mean(v[1:]):.2f} (min {np.min(v[1:]):.2f})" for k, v in parts.items()))
     infer = make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
     req = host_coo(clouds)
+    for _ in range(2):  # eager, then the capture: the profiled calls replay
+        infer(model, *req, BATCH)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             infer(model, *req, BATCH)
@@ -3056,6 +3128,12 @@ def main() -> None:
         l8 = phase_ddp_serve(path1, dev)
         layerwise_segments(path1, dev)
         l2 = serve_path("path 2 (int8 + fused stages)", spec, path2, LAUNCHES_PATH2, 2, dev)
+        graph_ms = {p: serve_graph(p, m, want, dev) for p, m, want in (
+            ("path 1", path1, LAUNCHES_PATH1), ("path 2", path2, LAUNCHES_PATH2))}
+        print("[slice] served graph, ms a request of 8, eager -> replay: " + ", ".join(
+            f"{p} {e:.2f} -> {r:.2f}" for p, (e, r, _) in graph_ms.items())
+            + "; wrapper launches in the capture (none in the replays): " + ", ".join(
+            f"{p} {c}" for p, (_, _, c) in graph_ms.items()))
         if "--split" in sys.argv[1:]:
             phase_split("path1", path1, dev)
             phase_split("path2", path2, dev)

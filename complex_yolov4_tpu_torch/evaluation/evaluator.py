@@ -25,10 +25,18 @@ detections are concatenated in order.
 Each call is one request of `utils/tracing.py` when a recording is open:
 a `serve` span with `raster`, `network` (decode included) and `nms` spans
 inside it, for every input and device count.
+
+COO cells on one CUDA device are served from a CUDA graph
+(`_RequestGraph`, where `serves_from_graph` says so): raster, network
+and NMS are captured once per input key and replayed, so the host no
+longer dispatches each of a request's kernels. A replay launches the
+kernels of the eager path on the same shapes in the same order, and its
+detections equal the eager path's bit for bit.
 """
 
 from __future__ import annotations
 
+import collections
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence
@@ -42,6 +50,94 @@ from ..models.network import Darknet
 from ..ops.nms import nms_batch
 from ..utils import tracing
 from . import metrics as M
+
+# the keys a model's served graphs remember, graphs and first calls alike;
+# the least recently used past these goes, a graph with its memory pool
+GRAPH_KEYS = 4
+
+
+def serves_from_graph(device, n_devices: int, from_cells: bool) -> bool:
+    """Whether a call of `make_inference_fn`'s function replays a CUDA
+    graph, from what the call observes: COO cells, on one device (no
+    `devices`, or one) that is a CUDA device, with no `tracing.recording()`
+    open (its layer spans need the host's boundaries between the layers)
+    and not under `torch.compile` or `torch.export`. Images and points stay
+    eager (their rasters are not checked for capture), and so do several
+    devices."""
+    return (from_cells and n_devices <= 1 and torch.device(device).type == "cuda"
+            and not tracing.is_recording() and not torch.compiler.is_compiling()
+            and not torch.compiler.is_exporting())
+
+
+def _touch(keys: "collections.OrderedDict", key) -> bool:
+    """Whether `key` is among `keys`, a model's most recently used keys
+    (each its `_RequestGraph`, or None after the key's first call). Makes
+    it the most recent, a new key as None, and drops the least recent past
+    GRAPH_KEYS, so a server whose every request has a capacity of its own
+    holds a few keys and at most GRAPH_KEYS graphs."""
+    if key in keys:
+        keys.move_to_end(key)
+        return True
+    keys[key] = None
+    while len(keys) > GRAPH_KEYS:
+        keys.popitem(last=False)
+    return False
+
+
+class _RequestGraph:
+    """One input key's request as a `torch.cuda.CUDAGraph`: raster,
+    network (decode included) and NMS captured over static device inputs
+    and replayed on the current stream; only the copies of the COO in and
+    of the answers out run outside it. A host input reaches the static
+    inputs through a pinned staging buffer and an asynchronous copy; an
+    event recorded after that copy is waited on before the host writes
+    the staging again, so a caller that does not synchronize between calls
+    cannot overwrite a copy still in flight. Runs under
+    `torch.inference_mode()` on its device. Holds no reference to the
+    model."""
+
+    def __init__(self, body: Callable, inputs: Sequence[torch.Tensor], device: torch.device):
+        """body: static inputs -> (detections, masks) on `device`, the
+        eager path, already run once on this key (its warm-up); inputs:
+        this call's (host or device) tensors. Captures the body on a side
+        stream and raises if the capture fails. The body runs once here,
+        as it is captured, so a capture advances the kernel wrappers'
+        `launches` counters as one eager call does."""
+        self.device = device
+        with torch.inference_mode(), torch.cuda.device(device):
+            self.static = [torch.empty(x.shape, dtype=x.dtype, device=device) for x in inputs]
+            self.staging = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                            for x in inputs]
+            self.staging_np = [s.numpy() for s in self.staging]
+            self.copied = torch.cuda.Event()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=torch.cuda.Stream(device)):
+                self.outputs = body(self.static)
+
+    def load(self, inputs: Sequence[torch.Tensor]) -> None:
+        """Copies a call's inputs into the static inputs on the current
+        stream: a device tensor directly, a host one through its staging.
+        numpy writes the staging on the calling thread alone: torch's
+        intra-op threads would each spin on after the copy, and a request
+        would wait on any of them that the host had taken off its core."""
+        if not all(x.is_cuda for x in inputs):
+            self.copied.synchronize()  # the last call's copies have read the staging
+        for x, static, staging, host in zip(inputs, self.static, self.staging, self.staging_np):
+            if x.is_cuda:
+                static.copy_(x)
+            else:
+                np.copyto(host, x.numpy())
+                static.copy_(staging, non_blocking=True)
+        self.copied.record()
+
+    def __call__(self, inputs: Sequence[torch.Tensor], n: int):
+        """Replays the graph on `inputs`: clones of the first `n` frames'
+        detections and masks, which a later replay leaves as they are."""
+        with torch.inference_mode(), torch.cuda.device(self.device):
+            self.load(inputs)
+            self.graph.replay()
+            dets, masks = self.outputs
+            return dets[:n].clone(), masks[:n].clone()
 
 
 def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
@@ -70,6 +166,22 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
     replica is the model itself when it lies on the first device. A flat
     COO batch cannot split (its cell ids are batch-global) and raises with
     more than one device: use the batched layout.
+
+    CUDA graph: where `serves_from_graph` holds (COO cells, one CUDA
+    device, no recording open), a call's key is its model (held weakly),
+    each input's shape and dtype (and so the layout) and the flat layout's
+    frame count. The first call of a key runs eager, and so warms up the
+    path (cuDNN's choice, the kernels' library, the allocator); the second
+    captures it (`_RequestGraph`) and replays it; every later one replays.
+    A model keeps its GRAPH_KEYS most recently used keys; a key pushed out
+    frees its graph and starts again eager. The graphs live in the
+    returned function and are freed with it. A
+    replay reads the model's buffers where the capture found them: a buffer
+    changed in place is seen, one replaced or a route switched
+    (`conv3x3.F32_ENABLED`) is not. The function's `captures` and
+    `replays` count its captures and its replays past them; the kernel
+    wrappers' `launches` counters are Python, so only eager calls and
+    captures advance them, never a replay. Every other call runs eager.
     """
     if from_cells and from_points:
         raise ValueError("from_cells and from_points are exclusive")
@@ -131,6 +243,10 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
                 masks = torch.cat([m.to(devs[0]) for _, m in outs])
             return dets[:b], masks[:b]
 
+    # model -> its GRAPH_KEYS most recent keys (`_touch`)
+    graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+    counts = {"captures": 0, "replays": 0}
+
     def infer_cells(model: Darknet, cells, keys, dens, batch_n: int,
                     batch_cap: Optional[int] = None):
         n = int(batch_n)
@@ -142,13 +258,33 @@ def make_inference_fn(*, conf_thresh: float = 0.5, nms_thresh: float = 0.5,
             cap = int(batch_cap or n)
         elif np.ndim(cells) != 2:
             raise ValueError("flat (capacity,) or batched (B, C) COO layout expected")
-        dets, masks = run(model, (cells, keys, dens), cap)
-        return dets[:n], masks[:n]
+        inputs = (cells, keys, dens)
+        dev = devs[0] if devs else model.device
+        if not serves_from_graph(dev, len(devs), from_cells=True):
+            dets, masks = run(model, inputs, cap)
+            return dets[:n], masks[:n]
+        xs = [torch.as_tensor(x) for x in inputs]
+        key = (cap, *((tuple(x.shape), x.dtype) for x in xs))
+        per_model = graphs.setdefault(model, collections.OrderedDict())
+        if not _touch(per_model, key):
+            dets, masks = run(model, inputs, cap)
+            return dets[:n], masks[:n]
+        graph = per_model[key]
+        if graph is None:
+            graph = per_model[key] = _RequestGraph(lambda s: run(model, s, cap), xs, dev)
+            counts["captures"] += 1
+        else:
+            counts["replays"] += 1
+        return graph(xs, n)
 
     def infer(model: Darknet, *inputs):
         return run(model, inputs)
 
-    return infer_cells if from_cells else infer
+    fn = infer_cells if from_cells else infer
+    # the counters are the function's attributes: the closure holds their
+    # dict, not the function, so dropping the function frees its graphs
+    fn.__dict__ = counts
+    return fn
 
 
 def evaluate_map(

@@ -68,7 +68,7 @@ from ..ops.activations import act
 from .bn_train import BN_EPS, batch_count, bn_train
 from .quantize import chain_set
 from .spec import ConvSpec, MaxPoolSpec, NetSpec, RouteSpec, ShortcutSpec, UpsampleSpec, YoloSpec
-from .yolo_head import decode_head, decode_head_raw
+from .yolo_head import anchor_tensor, decode_head, decode_head_raw
 
 
 @contextlib.contextmanager
@@ -181,7 +181,8 @@ class Darknet(nn.Module):
     Buffers: per conv ``w{i}``/``b{i}`` in the compute dtype, ``bk{i}``, the
     f32 bias, and for convs a 3x3 kernel can take ``wk{i}``, the weight
     packed once to (9*C_in, C_out) bf16; per quantized conv
-    ``wq{i}`` (C_out, k*k*C_in) int8, ``wqs{i}`` and ``bq{i}`` f32.
+    ``wq{i}`` (C_out, k*k*C_in) int8, ``wqs{i}`` and ``bq{i}`` f32; per
+    head ``anchors{i}`` (A, 4) f32, outside the state dict.
     """
 
     def __init__(self, spec: NetSpec, state: Dict[str, torch.Tensor], *,
@@ -209,6 +210,11 @@ class Darknet(nn.Module):
             self.register_buffer(f"bk{i}", b.to(device))
             if _kernel_capable(spec, i, layer, chans[i]):
                 self.register_buffer(f"wk{i}", conv3x3_mod.pack_weight(w).to(device))
+        # each head's anchors on the device, made once: made per call, they
+        # would be a host copy that waits for the stream, in every request
+        for i in spec.yolo_indices:
+            self.register_buffer(f"anchors{i}", anchor_tensor(spec.layers[i], device),
+                                 persistent=False)
         # int8 convs: {layer index: (s_x, float32 1/s_x)}
         self._quant: Dict[int, tuple] = {}
         for key in sorted({k.split(".")[0] for k in (quant or {})}):
@@ -373,7 +379,8 @@ class Darknet(nn.Module):
                     capture[f"layer{i}"] = m
                 h = self._conv(i, layer, h, routes.get(i), kernels)
             elif isinstance(layer, YoloSpec):
-                decoded.append(decode_head(outputs[i - 1], layer, img_size))
+                decoded.append(decode_head(outputs[i - 1], layer, img_size,
+                                           getattr(self, f"anchors{i}")))
                 h = outputs[i - 1]
             else:
                 h = _other_layer(layer, h, outputs, i)

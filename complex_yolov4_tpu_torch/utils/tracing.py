@@ -120,6 +120,11 @@ def span(name: str):
     return _On(rec, name)
 
 
+def is_recording() -> bool:
+    """Whether a recording is open."""
+    return _active is not None
+
+
 def count(name: str, n: int = 1) -> None:
     """Adds `n` to the counter `name` of the open request, if tracing is on."""
     rec = _active

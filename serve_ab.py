@@ -1,4 +1,4 @@
-"""Eager serving A/B between two checkouts of the PyTorch/CUDA port, in one
+"""Serving A/B between two checkouts of the PyTorch/CUDA port, in one
 process on one GPU.
 
     python3 serve_ab.py PARENT_CHECKOUT
@@ -12,7 +12,10 @@ nms 0.5, k=64. Each measurement runs in turns, parent, change, change,
 parent, REPS times, after a warm-up of both:
 
 - `device_ms`: the mean device part of a request (raster .. NMS, synced,
-  host clock), as phase 4 prints it;
+  host clock), as phase 4 prints it, through each arm's own function: a
+  checkout that serves COO cells from a CUDA graph runs a request's key
+  eager in the warm-up, captures it in the first turn and replays it
+  after (the first turn's readings hold the capture: read the medians);
 - `nms_ms`: the mean `nms_batch` alone on each request's decoded heads
   (synced), the same heads for both;
 - `stem_us`, `conv3x3_us`: the host's microseconds per call of the stem and

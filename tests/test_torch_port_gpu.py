@@ -650,3 +650,124 @@ def test_served_request_counts_one_nms_kernel():
         for _ in range(3):
             infer(model, images)
     assert rec.counters == {r: {"nms.kernel": 1} for r in range(3)}
+
+
+# ------------------------------------------------- the served CUDA graph ----
+
+GRAPH_FRAMES = 2
+
+
+@pytest.fixture(scope="module")
+def graph_paths():
+    """complex_yolov4 @608 on the card from seed-0 weights: path 1 (bf16:
+    stem, 3x3 and cuDNN) and path 2 (int8 PTQ calibrated on 2 frames, fused
+    CSP stages); 8 distinct requests of 2 synthetic frames as flat COO at
+    one capacity, and the first 3 at a second capacity."""
+    from complex_yolov4_tpu_torch.data import bev, synthetic
+    from complex_yolov4_tpu_torch.models import quantize, weights, zoo
+    from complex_yolov4_tpu_torch.models.network import Darknet
+
+    dev = _cuda()
+    spec = zoo.get_model_spec("complex_yolov4")
+    folded = weights.fold_batchnorm(spec, *weights.init_params_np(spec, 0))
+    st = weights.from_folded(spec, folded)
+    per = []
+    for r in range(8):
+        clouds = [bev.remove_points_outside(synthetic.sample_scene(
+            np.random.default_rng(1000 * (r + 1) + b))[0]) for b in range(GRAPH_FRAMES)]
+        per.append(list(zip(*map(bev.aggregate_bev_cells, clouds))))
+    most = max(sum(len(c) for c in cells) for cells, _ in per)
+    reqs = [bev.pack_cells_flat(cells, keys, most + most // 8) for cells, keys in per]
+    reqs2 = [bev.pack_cells_flat(cells, keys, most + most // 4) for cells, keys in per[:3]]
+    calib = bev.make_bev_map_from_cells(*(torch.as_tensor(a, device=dev) for a in reqs[0]),
+                                        GRAPH_FRAMES).cpu().numpy()
+    tree = quantize.quantize_model(spec, folded, [calib], device=dev)
+    models = {"path1": Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev),
+              "path2": Darknet(spec, st, compute_dtype=torch.bfloat16, device=dev,
+                               quant=weights.from_jax_quant(spec, tree), fused_stages=True)}
+    return models, reqs, reqs2
+
+
+def _graph_fn():
+    from complex_yolov4_tpu_torch.evaluation.evaluator import make_inference_fn
+
+    return make_inference_fn(conf_thresh=0.5, nms_thresh=0.5, max_boxes=64, from_cells=True)
+
+
+def _eager(infer, model, reqs):
+    """The same function's eager answers, on the host: a call inside a
+    tracing recording never replays."""
+    from complex_yolov4_tpu_torch.utils import tracing
+
+    with tracing.recording():
+        return [tuple(t.cpu() for t in infer(model, *q, GRAPH_FRAMES)) for q in reqs]
+
+
+def _equal(got, want):
+    return torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("path", ["path1", "path2"])
+def test_graph_replays_equal_eager(graph_paths, path):
+    """Over 8 distinct requests of one capacity: the first call of the key
+    runs eager, the second captures, the rest replay; every answer equals
+    the eager one bit for bit. The calls after the capture run back to
+    back with no synchronize between them (the staging guard), and the
+    first of their results is held across 9 later calls. The wrappers'
+    launches advance on the eager call and the capture, never on a
+    replay. A second capacity captures a second graph."""
+    from complex_yolov4_tpu_torch.ops import nms as nms_mod
+
+    models, reqs, reqs2 = graph_paths
+    model = models[path]
+    infer = _graph_fn()
+    eager = _eager(infer, model, reqs)
+    assert (infer.captures, infer.replays) == (0, 0)
+    assert sum(float(m.sum()) for _, m in eager) > 0  # live detections
+    n0 = nms_mod.nms_batch.launches
+    first = infer(model, *reqs[0], GRAPH_FRAMES)
+    assert (infer.captures, infer.replays) == (0, 0)
+    second = infer(model, *reqs[1], GRAPH_FRAMES)
+    assert (infer.captures, infer.replays) == (1, 0)
+    n1 = nms_mod.nms_batch.launches
+    order = list(range(2, 8)) + [0, 1, 2]
+    outs = [infer(model, *reqs[r], GRAPH_FRAMES) for r in order]
+    torch.cuda.synchronize()
+    assert (infer.captures, infer.replays) == (1, len(order))
+    assert n1 - n0 == 4 and nms_mod.nms_batch.launches == n1  # 2 a run, none a replay
+    assert _equal(first, eager[0]) and _equal(second, eager[1])
+    for r, got in zip(order, outs):
+        assert got[0].shape == (GRAPH_FRAMES, 64, 9) and got[1].shape == (GRAPH_FRAMES, 64)
+        assert _equal(got, eager[r]), f"request {r}"
+    eager2 = _eager(infer, model, reqs2)
+    outs2 = [infer(model, *q, GRAPH_FRAMES) for q in reqs2]
+    assert (infer.captures, infer.replays) == (2, len(order) + 1)
+    assert all(_equal(g, w) for g, w in zip(outs2, eager2))
+    assert all(_equal(g, w) for g, w in zip(outs2, eager[:3]))  # the capacity changes nothing
+
+
+@pytest.mark.parametrize("path", ["path1", "path2"])
+def test_graph_sees_buffers_changed_in_place(graph_paths, path):
+    """An in-place `copy_` into a model buffer (the first head conv's bias,
+    a cuDNN conv on both paths) is seen by the next replay: its answers
+    move, and equal the eager answers of the changed model."""
+    from complex_yolov4_tpu_torch.models import quantize
+
+    models, reqs, _ = graph_paths
+    model = models[path]
+    infer = _graph_fn()
+    for q in reqs[:3]:
+        infer(model, *q, GRAPH_FRAMES)
+    assert (infer.captures, infer.replays) == (1, 1)
+    before = tuple(t.cpu() for t in infer(model, *reqs[3], GRAPH_FRAMES))
+    bias = getattr(model, f"b{min(quantize.head_conv_indices(model.spec))}")
+    saved = bias.clone()
+    try:
+        bias.copy_(saved + 0.5)
+        after = infer(model, *reqs[3], GRAPH_FRAMES)
+        assert (infer.captures, infer.replays) == (1, 3)
+        want = _eager(infer, model, reqs[3:4])[0]
+        assert _equal(after, want) and not _equal(after, before)
+    finally:
+        bias.copy_(saved)
+    assert _equal(infer(model, *reqs[3], GRAPH_FRAMES), before)
